@@ -6,12 +6,17 @@ reference.  Module names mirror the JAX package so each counterpart is easy
 to find:
 
 - ``dsp``      -- STFT / iSTFT, windows, wav I/O
-- ``models``   -- the DR-NMF unfolded-ISTA model (inference side)
-- ``ops``      -- the hand-written CUDA kernels and their plain versions
-- ``train``    -- ``.npz`` checkpoints
+- ``models``   -- the DR-NMF unfolded-ISTA model (inference side) and the
+                  SNMF enhancer
+- ``ops``      -- the hand-written CUDA kernels and their plain versions;
+                  sparse NMF (``ops.snmf``)
+- ``train``    -- ``.npz`` checkpoints; the two-stage SNMF dictionary recipe
+- ``data``     -- masked sequences -> frame matrix
+- ``utils``    -- the hash-keyed SNMF dictionary cache
 - ``enhance``  -- the batch enhancer (waveform in, enhanced waveform out)
 - ``convert``  -- parameters across from the JAX package, and init
-- ``config``   -- YAML model config -> ``DRNMFConfig``
+- ``config``   -- YAML model config -> ``DRNMFConfig`` / ``SNMFParams``;
+                  the artifact hash
 - ``enhance_wav`` -- command line: config + checkpoint + wavs -> wavs
 
 This package never imports ``jax`` or ``drnmf_tpu``; importing it sets no

@@ -1,13 +1,43 @@
-"""Model YAML -> ``DRNMFConfig`` (counterpart of the JAX package's
-``pipeline.drnmf_config_from_params`` and ``utils.config.load_yaml``).
+"""Model YAML -> ``DRNMFConfig`` and ``SNMFParams``, and the artifact hash
+(counterparts of the JAX package's ``pipeline.drnmf_config_from_params``,
+the ``SNMFParams`` built in ``pipeline._dict_from_config`` and
+``utils.config``).
 
 Keys that name knobs of the TPU build (``use_pallas``, ``remat``,
 ``remat_policy``, ``scan_unroll``, ``batched_grad``, ...) are accepted and
 ignored, so the reference's model YAMLs load as they are."""
 
+import hashlib
+import json
+
+import numpy as np
 import yaml
 
 from .models.drnmf import DRNMFConfig
+from .ops.snmf import SNMFParams
+
+
+class _NumpyEncoder(json.JSONEncoder):
+    """Numpy scalars and arrays as JSON, like the reference's ``MyEncoder``."""
+
+    def default(self, obj):
+        if isinstance(obj, np.integer):
+            return int(obj)
+        if isinstance(obj, np.floating):
+            return float(obj)
+        if isinstance(obj, np.ndarray):
+            return obj.tolist()
+        return super().default(obj)
+
+
+def config_hash(config: dict, exclude=()) -> str:
+    """md5 of the sorted JSON of ``config`` without the keys ``exclude``:
+    the name of every artifact (enhance.py:60-78 of the reference), equal
+    to the JAX package's for the same config."""
+    cfg = {k: v for k, v in config.items() if k not in exclude}
+    return hashlib.md5(
+        json.dumps(cfg, sort_keys=True, cls=_NumpyEncoder).encode()
+    ).hexdigest()
 
 
 def load_yaml(path):
@@ -41,4 +71,19 @@ def drnmf_config_from_params(params_model: dict, input_dim: int,
         matmul_precision=params_model.get("matmul_precision", "default"),
         fold_frozen_U=bool(params_model.get("fold_frozen_U", True)),
         factored_S=bool(params_model.get("factored_S", True)),
+    )
+
+
+def snmf_params_from_config(params_model: dict) -> SNMFParams:
+    """The dictionary stage's settings from a model YAML, with the
+    pipeline's defaults (ED cost, sparsity from ``lam1``, 1000 iterations,
+    conv_eps 1e-4, seed 2016)."""
+    return SNMFParams(
+        r=int(params_model["r"]),
+        cf=params_model.get("cf", "ed"),
+        sparsity=float(params_model.get(
+            "lam1", params_model.get("sparsity", 1.0))),
+        max_iter=int(params_model.get("snmf_max_iter", 1000)),
+        conv_eps=float(params_model.get("snmf_conv_eps", 1e-4)),
+        random_seed=int(params_model.get("random_seed", 2016)),
     )

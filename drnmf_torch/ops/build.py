@@ -1,4 +1,5 @@
-"""Build a CUDA source of this package into a shared library at first use.
+"""Build a CUDA source of this package into a shared library at first use,
+and check a wrapper's operands before their pointers go to it.
 
 Route: ``nvcc`` for ``sm_90a`` into a library with a plain C interface,
 loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).  The
@@ -12,6 +13,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "drnmf_torch_kernels"
@@ -64,3 +67,19 @@ def build_log(source: str) -> str:
 
 def load(source: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build(source)))
+
+
+def check_operand(name, t, shape, dtype, device):
+    """Raise unless ``t`` is a contiguous tensor of this shape, dtype and
+    device: what a kernel's pointer arithmetic assumes."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -68,20 +68,6 @@ def drnmf_scan_factored_reference(x, step_mask, h0, diag1, off1, c_uk,
     return torch.stack(outs, dim=1)
 
 
-def _check(name, t, shape, dtype, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def drnmf_scan_factored(x, step_mask, h0, diag1, off1, c_uk, dkt_stack,
                         dka_stack, b_stack):
     """Folded + factored recurrence over the whole sequence.
@@ -114,7 +100,7 @@ def drnmf_scan_factored(x, step_mask, h0, diag1, off1, c_uk, dkt_stack,
             ("dkt_stack", dkt_stack, (max(1, k_layers - 1), n2r, f), f32),
             ("dka_stack", dka_stack, (k_layers, f, n2r), f32),
             ("b_stack", b_stack, (k_layers, n2r), f32)]:
-        _check(name, t, shape, dtype, dev)
+        build.check_operand(name, t, shape, dtype, dev)
 
     if dev.type == "cpu":
         return drnmf_scan_factored_reference(

@@ -1,4 +1,5 @@
-"""Kernel B1 and the enhancer on the card, against their plain versions.
+"""Kernels B1, B4 and B5, the enhancer and sparse NMF on the card, against
+their plain versions and the CPU.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports neither jax nor drnmf_tpu, so on a machine with a
@@ -7,8 +8,10 @@ card and no JAX it runs on its own:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerance rtol 1e-4 / atol 1e-5 on hidden states: f32 on both sides, the
-kernel summing the thin products in another order than cuBLAS.  One test
-walks every case and names it in a failure message.
+kernel summing the thin products in another order than cuBLAS.  B4/B5:
+rtol 1e-4 of each output's largest entry (f32 on both sides, sums over up
+to 4,099 frames in another order).  Each test walks its cases and names
+them in a failure message.
 """
 
 import numpy as np
@@ -18,7 +21,7 @@ import torch
 from drnmf_torch.convert import init_drnmf_params
 from drnmf_torch.enhance import enhance_signals
 from drnmf_torch.models import drnmf
-from drnmf_torch.ops import drnmf_scan
+from drnmf_torch.ops import drnmf_scan, snmf, snmf_mu
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -158,3 +161,105 @@ def test_on_card(cuda):
     _wrapper_rejects_malformed_operands(cuda)
     _enhance_matches_cpu(cuda)
     _other_configs_run_plain_loop(cuda)
+
+
+SNMF_SHAPES = [  # (m, r, n)
+    (17, 6, 40),  # the Pallas hold-out shape
+    (1, 1, 1),
+    (64, 64, 64),  # exactly one tile
+    (65, 63, 129),  # one past / short of the tile everywhere
+    (257, 100, 4099),  # F=257 and a ragged frame edge
+    (257, 2000, 1000),  # the dictionary's width
+]
+
+
+def _max_rel(out, ref):
+    return ((out - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
+def _snmf_passes_match_plain(device):
+    rng = np.random.default_rng(4)
+    for m, r, n in SNMF_SHAPES:
+        for sparsity in (0.0, 0.7):
+            case = f"m={m} r={r} n={n} sparsity={sparsity}"
+            v = torch.from_numpy(
+                rng.uniform(0.01, 1.0, (m, n)).astype(np.float32)).to(device)
+            w = torch.from_numpy(
+                rng.uniform(0.1, 1.0, (m, r)).astype(np.float32)).to(device)
+            w = w / (w * w).sum(dim=0, keepdim=True).sqrt()
+            h = torch.from_numpy(
+                rng.uniform(0.1, 1.0, (r, n)).astype(np.float32)).to(device)
+            before = dict(snmf_mu.LAUNCHES)
+            out = snmf_mu.snmf_mu_pass1(v, h, w, sparsity)
+            again = snmf_mu.snmf_mu_pass1(v, h, w, sparsity)
+            div = snmf_mu.snmf_mu_pass2(v, out[0], w)
+            torch.cuda.synchronize()
+            assert snmf_mu.LAUNCHES == {"pass1": before["pass1"] + 2,
+                                        "pass2": before["pass2"] + 1}, case
+            for o, a in zip(out, again):  # no atomics: bit for bit
+                assert torch.equal(o, a), case
+            ref = snmf_mu.snmf_mu_pass1_reference(v, h, w, sparsity)
+            for name, o, rf in zip(("h_new", "a", "b", "sp_sum"), out, ref):
+                assert o.shape == rf.shape, case
+                if sparsity or name != "sp_sum":
+                    assert _max_rel(o, rf) <= 1e-4, f"{case} {name}"
+            assert _max_rel(div, snmf_mu.snmf_mu_pass2_reference(
+                v, out[0], w)) <= 1e-4, case
+
+            # one whole iteration with half of W frozen
+            w_mask = torch.arange(r, device=device) < r // 2
+            it = snmf_mu.mu_ed_iteration(v, h, w, sparsity, w_mask)
+            plain = snmf_mu.mu_ed_iteration(v, h, w, sparsity, w_mask,
+                                            passes=snmf_mu.PLAIN_PASSES)
+            for name, o, rf in zip(("h", "w", "div", "cost"), it, plain):
+                assert _max_rel(o, rf) <= 1e-4, f"{case} iteration {name}"
+
+    v = torch.rand((9, 20), device=device)
+    h = torch.rand((4, 20), device=device)
+    w = torch.rand((9, 4), device=device)
+    for bad in ((v, h.cpu(), w), (v.double(), h, w), (v, h, w[:, :3]),
+                (v, h.T.contiguous().T, w)):
+        before = dict(snmf_mu.LAUNCHES)
+        with pytest.raises((TypeError, ValueError)):
+            snmf_mu.snmf_mu_pass1(*bad, 0.5)
+        with pytest.raises((TypeError, ValueError)):
+            snmf_mu.snmf_mu_pass2(*bad)
+        assert snmf_mu.LAUNCHES == before
+
+
+def _sparse_nmf_matches_cpu(device):
+    """``sparse_nmf`` on the card against the CPU from the same start: the
+    ED route through B4/B5 (one launch each per iteration) and the KL route
+    through the plain core; W and H within rtol 1e-4 / atol 1e-5, costs
+    rtol 1e-4 after 10 iterations."""
+    rng = np.random.default_rng(5)
+    m, r, n = 33, 12, 500
+    v = rng.uniform(0.01, 1.0, (m, n)).astype(np.float32)
+    for cf in ("ed", "kl"):
+        params = snmf.SNMFParams(
+            r=r, cf=cf, sparsity=0.3, max_iter=10, conv_eps=0.0,
+            init_w=rng.uniform(0.1, 1.0, (m, r)).astype(np.float32),
+            init_h=rng.uniform(0.1, 1.0, (r, n)).astype(np.float32),
+            w_update_ind=np.arange(r) >= r // 2)
+        before = dict(snmf_mu.LAUNCHES)
+        on_card = snmf.sparse_nmf(v, params, device=device)
+        routed = 10 if cf == "ed" else 0
+        assert snmf_mu.LAUNCHES == {k: before[k] + routed
+                                    for k in before}, cf
+        on_cpu = snmf.sparse_nmf(v, params, device="cpu")
+        np.testing.assert_allclose(on_card.w, on_cpu.w, rtol=1e-4,
+                                   atol=1e-5, err_msg=cf)
+        np.testing.assert_allclose(on_card.h, on_cpu.h, rtol=1e-4,
+                                   atol=1e-5, err_msg=cf)
+        np.testing.assert_allclose(on_card.cost, on_cpu.cost, rtol=1e-4,
+                                   err_msg=cf)
+
+
+@pytest.mark.cuda
+def test_snmf_on_card(cuda):
+    """B4 and B5 against their plain versions over a grid of shapes that
+    cut every tile, with sparsity 0 and 0.7 and half of W frozen, bit for
+    bit reproducible; the wrappers' checks; ``sparse_nmf`` on the card
+    against the CPU."""
+    _snmf_passes_match_plain(cuda)
+    _sparse_nmf_matches_cpu(cuda)

@@ -30,17 +30,21 @@ def test_port_imports_no_jax_or_reference_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 15
+    assert n_modules >= 25
 
 
 def _call_entry_point(name, tmp_path):
     from drnmf_torch import enhance_wav
     from drnmf_torch.convert import init_drnmf_params, params_from_numpy
     from drnmf_torch.enhance import enhance_signals, make_enhancer
+    from drnmf_torch.models import snmf_infer_irm
     from drnmf_torch.models.drnmf import DRNMFConfig
+    from drnmf_torch.ops.snmf import SNMFParams, sparse_nmf
+    from drnmf_torch.train.snmf_recipe import train_snmf
 
     cfg = DRNMFConfig(input_dim=5, r=2, output_dim=5, K_layers=1)
     w = np.full((5, 4), 0.5, np.float32)
+    snmf = SNMFParams(r=2, cf="ed", max_iter=1)
     if name == "make_enhancer":
         make_enhancer(cfg)
     elif name == "enhance_signals":
@@ -49,6 +53,12 @@ def _call_entry_point(name, tmp_path):
         params_from_numpy({"a": w})
     elif name == "init_drnmf_params":
         init_drnmf_params(cfg, w)
+    elif name == "sparse_nmf":
+        sparse_nmf(w, snmf)
+    elif name == "train_snmf":
+        train_snmf(w, w, snmf, path_dicts=str(tmp_path), verbose=False)
+    elif name == "snmf_infer_irm":
+        snmf_infer_irm(w, w, snmf)
     else:
         wav = tmp_path / "x.wav"
         wav.write_bytes(b"")
@@ -61,6 +71,7 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     raise instead of running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name in ("make_enhancer", "enhance_signals", "params_from_numpy",
-                 "init_drnmf_params", "enhance_wav"):
+                 "init_drnmf_params", "enhance_wav", "sparse_nmf",
+                 "train_snmf", "snmf_infer_irm"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             _call_entry_point(name, tmp_path)
