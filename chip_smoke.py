@@ -9,11 +9,19 @@ toolkit:
 Phases, each printing one JSON line:
 
 1. device  -- requires CUDA; prints the card's name and power limit.
-2. build   -- builds kernel B1 (ops/csrc/drnmf_scan_factored.cu) and kernels
-              B4/B5 (ops/csrc/snmf_mu.cu) with nvcc, one process each, in
-              parallel; prints ptxas's register and spill counts.
+2. build   -- builds kernels B1/B2 (ops/csrc/drnmf_scan_factored.cu), B3
+              (ops/csrc/drnmf_scan_dense.cu) and B4/B5 (ops/csrc/snmf_mu.cu)
+              with nvcc, one process each, in parallel; prints ptxas's
+              register and spill counts.
 3. kernel  -- B1 against its plain PyTorch version on the card, at a small
               odd shape and at the flagship widths over 64 steps.
+   interleave_kernel -- B2 against the same plain version and against B1
+              (bit for bit expected) at an odd batch, at the flagship widths
+              and at the streaming shape (64 rows, 16 steps).
+   dense_kernel -- B3 against its plain version with u1, uk, S and W drawn
+              at a scale where every term moves the output: a ragged shape,
+              K = 1 (dummy S, zero uk), a masked tail, the flagship widths
+              at a batch of 256, of 64 and of 1.
    snmf_kernel -- B4 and B5 against their plain versions (and one whole MU
               iteration with half of W frozen) at the JAX hold-out shape, at
               odd shapes that cut every tile and at m=257, 2r=2000, n=4,099.
@@ -25,30 +33,58 @@ Phases, each printing one JSON line:
               forced to the plain version, on 4 signals of 2 s.
 6. stages  -- one warm ``enhance_signals`` call of 256 x 8 s, stage by
               stage (its ``lap`` hook, a synchronisation at each stage).
-   times   -- B1 and its plain version at the main path's shapes
-              (B=256, T=1021), and the end-to-end real-time factor.
-7. snmf_recipe -- the dictionary stage through ``train_snmf`` at full width
+   times   -- B1, B2 and their plain version at the main path's shapes
+              (B=256, T=1021) and at the streaming shape (64 x 16), and the
+              end-to-end real-time factor.
+7. dense_main -- a dense-U flagship model (the flagship parameters with
+              log_U1/log_Uk perturbed from a seed, so the rank-one fold does
+              not hold; U trainable in its YAML) through ``enhance_wav`` and
+              ``enhance_signals`` on 8 s signals: B3 launches once per
+              enhance call, B1 never.
+   dense_parity -- that path against the path on B3's plain version.
+   dense_times -- B3, its plain version and its bound at that shape.
+8. stream  -- ``StreamingEnhancer`` (64-frame blocks) on one 8 s signal fed
+              in odd chunks, frozen-U (B1) and dense-U (B3), against
+              ``enhance_signals`` on the card.
+   multi   -- ``MultiStreamEnhancer``, 64 streams of 16-frame blocks under a
+              rotating ``active`` mask, drained with ``flush_stream`` and a
+              tail: frozen-U (B1), frozen-U asked for the interleaved entry
+              (B2), dense-U (B3); every stream against its offline output.
+   serve   -- ``python -m drnmf_torch.serve --streams 4`` (the event-loop
+              server) in a thread of this process on 127.0.0.1, four client
+              threads sending 3 s each in protocol chunks; replies against
+              offline.  Every socket has a timeout.
+   paced   -- ``paced_load`` for 5 s at 64 streams; prints ``paced_stats``.
+9. snmf_recipe -- the dictionary stage through ``train_snmf`` at full width
               (r=1000, 2r=2000, F=257) on 139 x 8 s of synthetic clean and
               noisy frames (139,695 frames: stage 1 in one chunk, stage 2 in
               two), 10 iterations a chunk; B4/B5 launch once per iteration;
               the dictionary then initialises the flagship model, which
               enhances 4 signals through B1.
-8. snmf_infer -- ``snmf_infer_irm`` (W frozen, 200 iterations) on 16 x 8 s.
-9. snmf_parity -- ``sparse_nmf_ed`` with B4/B5 against the same solver on
+10. snmf_infer -- ``snmf_infer_irm`` (W frozen, 200 iterations) on 16 x 8 s.
+11. snmf_parity -- ``sparse_nmf_ed`` with B4/B5 against the same solver on
               the plain passes, 10 iterations at 257 x 16,080 x 2000.
-10. snmf_times -- B4, B5, their plain versions and the bare cuBLAS products
+12. snmf_times -- B4, B5, their plain versions and the bare cuBLAS products
               at bench.py's SNMF shape (257 x 140,000, 2r=2000), and the
               end-to-end ``sparse_nmf`` iteration rate there.
+
+Every path is driven with all launch counts set to 0 just before it and
+read just after.
 
 Then a line with the kernel table, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that.
 """
 
+import dataclasses
+import functools
 import json
 import os
+import socket
 import statistics
+import struct
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -75,6 +111,13 @@ SNMF_TIMES_SHAPE = (257, 2000, 140_000)  # bench.py::bench_snmf's m, 2r, n
 # waveform by at most about 2e-4 of its peak (four overlapping frames,
 # synthesis scale 0.5): -74 dB, far inside the 0.1 dB SDR budget
 WAVE_RTOL_OF_PEAK = 2e-4
+# streaming against offline on the card: the same kernels on the same rows
+# (their per-row arithmetic does not depend on the batch), so what differs
+# is cuFFT's batching and the overlap-add's order (a block's frames first,
+# the carry after): f32 rounding of the waveform
+STREAM_RTOL, STREAM_ATOL = 1e-4, 1e-5
+STREAMS, MULTI_BLOCK = 64, 16  # the server's default block (serve.py)
+SOCKET_TIMEOUT_S = 120.0
 
 
 def log(phase, **fields):
@@ -115,14 +158,93 @@ def flagship():
     return config, params
 
 
-def scan_operands(config, params, x):
+def dense_flagship(config, params):
+    """The flagship model with dense U: log_U1 and log_Uk perturbed downward
+    from seed 4567 (U's entries shrink by factors in [0.82, 1] and [0.61, 1],
+    so the recurrence stays as stable as the frozen model's), which breaks
+    the structure the rank-one fold reads, and both marked trainable as a
+    model that trained them would be."""
     import torch
-    from drnmf_torch.models.drnmf import (factored_scan_operands,
-                                          step_mask_from_input)
+    from drnmf_torch.models.drnmf import fold_structure_holds, u_is_foldable
+
+    rng = np.random.default_rng(4567)
+    dense_params = dict(params)
+    for name, width in (("log_U1", 0.2), ("log_Uk", 0.5)):
+        shift = rng.uniform(0.0, width, tuple(params[name].shape))
+        dense_params[name] = params[name] - torch.from_numpy(
+            shift.astype(np.float32)).cuda()
+    dense_config = dataclasses.replace(
+        config, params_trainable=config.params_trainable + ("log_U1",
+                                                            "log_Uk"))
+    check(not fold_structure_holds(dense_params)
+          and not u_is_foldable(dense_config),
+          "the dense-U model still folds")
+    return dense_config, dense_params
+
+
+def scan_operands(config, params, x):
+    """The recurrence's operands for this model and input on the card, as
+    the model's route builds them: B1/B2's for a folded model, B3's for a
+    dense-U one."""
+    import torch
+    from drnmf_torch.models.drnmf import (dense_scan_operands,
+                                          factored_scan_operands,
+                                          step_mask_from_input, u_is_foldable)
 
     x = torch.as_tensor(x, device="cuda")
-    return factored_scan_operands(params, config, x,
-                                  step_mask_from_input(x, config.mask_value))
+    build_operands = (factored_scan_operands if u_is_foldable(config)
+                      else dense_scan_operands)
+    return build_operands(params, config, x,
+                          step_mask_from_input(x, config.mask_value))
+
+
+def dense_operands(rng, bsz, t_len, f, n2r, k_layers, held_from=None):
+    """Operands of B3 on the card at a scale where every term moves the
+    output: u1, uk and S uniform in [0, 1/2r] (so the state stays bounded),
+    W with unit columns over 10, a small negative bias, h0 in [0, 0.5].
+    ``held_from``: the middle row is masked from that step on.  K == 1
+    takes a zero uk and a one-matrix S dummy, as the model passes them."""
+    import torch
+
+    def uniform(hi, *shape):
+        return torch.from_numpy(
+            rng.uniform(0.0, hi, shape).astype(np.float32)).cuda()
+
+    x = uniform(1.0, bsz, t_len, f)
+    step_mask = torch.ones((bsz, t_len), dtype=torch.bool, device="cuda")
+    if held_from is not None:
+        step_mask[bsz // 2, held_from:] = False
+    w = uniform(1.0, k_layers, f, n2r) + 0.05
+    w = w / (w * w).sum(dim=1, keepdim=True).sqrt() / 10.0
+    uk = uniform(1.0 / n2r, n2r, n2r)
+    if k_layers == 1:
+        uk = torch.zeros_like(uk)
+    return (x, step_mask, uniform(0.5, bsz, n2r),
+            uniform(1.0 / n2r, n2r, n2r), uk,
+            uniform(1.0 / n2r, max(1, k_layers - 1), n2r, n2r), w,
+            -uniform(0.05, k_layers, n2r))
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0 (just before a path is driven)."""
+    from drnmf_torch.ops import drnmf_scan, snmf_mu
+
+    for counts in (drnmf_scan.LAUNCHES, snmf_mu.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def read_launches():
+    """Every kernel's launch count since the last reset: B1 ``factored``,
+    B2 ``interleaved``, B3 ``dense``, B4 ``pass1``, B5 ``pass2``."""
+    from drnmf_torch.ops import drnmf_scan, snmf_mu
+
+    return {**drnmf_scan.LAUNCHES, **snmf_mu.LAUNCHES}
+
+
+def only_launched(launches, *names):
+    """True when the kernels ``names`` were launched and no other was."""
+    return all((launches[k] > 0) == (k in names) for k in launches)
 
 
 def cuda_ms(fn, reps):
@@ -156,6 +278,25 @@ def b1_bound(args):
                                        else "bytes")
 
 
+def b3_bound(args):
+    """(bound ms, 'bytes' or 'operations') of one B3 call on these inputs:
+    2*(2r)^2*(2K-1) + 2*F*2r*K flops per valid (unmasked) row-step over the
+    f32 CUDA-core peak, against each input the function reads (K == 1 reads
+    neither uk nor the S dummy) once and the output written once over the
+    HBM rate."""
+    x, step_mask = args[0], args[1]
+    bsz, t_len, f = x.shape
+    n2r, k_layers = args[2].shape[-1], args[6].shape[0]
+    flops = ((2 * n2r * n2r * (2 * k_layers - 1) + 2 * f * n2r * k_layers)
+             * int(step_mask.sum().item()))
+    read = [a for i, a in enumerate(args) if k_layers > 1 or i not in (4, 5)]
+    nbytes = sum(a.numel() * a.element_size() for a in read)
+    nbytes += bsz * t_len * n2r * 4  # output
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def synth_signals(rng, n, seconds):
     """Noise plus a few tones, peak below 1."""
     t = np.arange(int(FS * seconds)) / FS
@@ -167,6 +308,17 @@ def synth_signals(rng, n, seconds):
         sigs.append((tones + 0.05 * rng.standard_normal(t.size))
                     .astype(np.float32))
     return sigs
+
+
+def close_to(got, want):
+    """(max abs difference, within STREAM_RTOL/ATOL) of a streamed waveform
+    against the offline one over the offline one's length."""
+    got = np.asarray(got)[:len(want)]
+    if len(got) < len(want):
+        return float("inf"), False
+    diff = np.abs(got - want)
+    return (float(diff.max()) if diff.size else 0.0,
+            bool((diff <= STREAM_ATOL + STREAM_RTOL * np.abs(want)).all()))
 
 
 def snmf_bounds(m, r, n):
@@ -248,22 +400,20 @@ def snmf_kernel_phase():
         check(ok, f"B4/B5 disagree with their plain versions at {case}")
 
 
-def iteration_split(v, h, w):
-    """Where one warm MU iteration's time goes: device ms by kernel name
-    from ``torch.profiler`` (B4's four products and its sums, the W-update
-    glue, B5), the sum of device time, and the iteration's wall ms between
-    two synchronisations; their difference is the device's idle time."""
+def profile_split(fn, top=None):
+    """Where one warm call of ``fn`` spends its time: device ms by kernel
+    name from ``torch.profiler`` (the ``top`` largest, all when None), the
+    sum of device time, and the call's wall ms between two
+    synchronisations; their difference is the device's idle time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from drnmf_torch.ops import snmf_mu
 
-    w_mask = torch.ones(w.shape[1], dtype=torch.bool, device="cuda")
-    snmf_mu.mu_ed_iteration(v, h, w, 1.0, w_mask)  # warm
+    fn()  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        snmf_mu.mu_ed_iteration(v, h, w, 1.0, w_mask)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = {}
@@ -276,8 +426,8 @@ def iteration_split(v, h, w):
             prev = kernels.get(e.key[:100], [0.0, 0])
             kernels[e.key[:100]] = [prev[0] + ms, prev[1] + e.count]
     busy = sum(k[0] for k in kernels.values())
-    return {"device_ms_by_kernel": dict(sorted(
-                kernels.items(), key=lambda kv: -kv[1][0])),
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    return {"device_ms_by_kernel": dict(ranked[:top]),
             "device_busy_ms": busy, "wall_ms_profiled": wall_ms,
             # None when the profiler saw no device time (not measured)
             "idle_share": max(0.0, 1.0 - busy / wall_ms) if busy else None}
@@ -317,7 +467,7 @@ def snmf_phases(card, config):
     from drnmf_torch.convert import init_drnmf_params
     from drnmf_torch.enhance import enhance_signals
     from drnmf_torch.models import snmf_infer_irm
-    from drnmf_torch.ops import drnmf_scan, snmf, snmf_mu
+    from drnmf_torch.ops import snmf, snmf_mu
     from drnmf_torch.train import snmf_recipe
     from drnmf_torch.utils.cache import load_snmf, snmf_cache_path
 
@@ -338,8 +488,7 @@ def snmf_phases(card, config):
         return res
 
     snmf.sparse_nmf = counted
-    drnmf_scan.LAUNCHES = 0
-    snmf_mu.LAUNCHES.update(pass1=0, pass2=0)
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
@@ -349,7 +498,7 @@ def snmf_phases(card, config):
     finally:
         snmf.sparse_nmf = solve
     recipe_s = time.perf_counter() - t0
-    launches = dict(snmf_mu.LAUNCHES)
+    launches = read_launches()
     w_clean, _, obj_clean = load_snmf(
         snmf_cache_path(params, work, prefix="clean"), load_h=False)
     norms = np.sqrt((w_noisy.astype(np.float64) ** 2).sum(axis=0))
@@ -367,7 +516,7 @@ def snmf_phases(card, config):
     w_flag = init_drnmf_params(config, w_noisy)
     sigs = synth_signals(np.random.default_rng(4), 4, 8.0)
     enhanced = enhance_signals(w_flag, config, sigs, N_FFT, HOP)
-    b1_launches = drnmf_scan.LAUNCHES
+    b1_launches = read_launches()["factored"]
     check(all(np.isfinite(e).all() for e in enhanced) and b1_launches == 1,
           "the model from the learned dictionary did not enhance through B1")
     log("snmf_recipe", card=card, frames=[int(clean.shape[1]),
@@ -386,12 +535,12 @@ def snmf_phases(card, config):
     x_frames = noisy[:, :noisy.shape[1] * INFER_SIGNALS // SNMF_SIGNALS]
     x_frames = x_frames.contiguous()
     del noisy
-    snmf_mu.LAUNCHES.update(pass1=0, pass2=0)
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     irm, _ = snmf_infer_irm(x_frames, w_noisy, params, max_iter=INFER_ITERS)
     infer_s = time.perf_counter() - t0
-    infer_launches = dict(snmf_mu.LAUNCHES)
+    infer_launches = {k: read_launches()[k] for k in ("pass1", "pass2")}
     check(irm.shape == (257, x_frames.shape[1]) and np.isfinite(irm).all()
           and irm.min() >= 0 and irm.max() <= 1, "mask not finite in [0, 1]")
     check(infer_launches == {"pass1": INFER_ITERS, "pass2": INFER_ITERS},
@@ -439,7 +588,11 @@ def snmf_phases(card, config):
         "pass2": cuda_ms(lambda: w @ h, 5)}
     del lam
     bounds = snmf_bounds(m, r2, n)
-    split = iteration_split(v, h, w)
+    # one warm MU iteration: B4's four products and its sums, the W-update
+    # glue, B5
+    all_w = torch.ones(r2, dtype=torch.bool, device="cuda")
+    split = profile_split(
+        lambda: snmf_mu.mu_ed_iteration(v, h, w, 1.0, all_w))
     n_iter = 20
     nmf_params = snmf.SNMFParams(r=r2, cf="ed", sparsity=1.0,
                                  max_iter=n_iter, conv_eps=0.0,
@@ -469,6 +622,8 @@ def snmf_phases(card, config):
             "source": "drnmf_torch/ops/csrc/snmf_mu.cu",
             "replaces": f"drnmf_tpu/ops/pallas/snmf_mu.py:{line}",
             "launches": launches[name],
+            "launches_by_path": {"snmf_recipe": launches[name],
+                                 "snmf_infer": infer_launches[name]},
             "max_abs_err": max(errs[o][0] for o in outputs),
             "ms": ms[name],
             "plain_ms": plain_ms[name],
@@ -479,48 +634,14 @@ def snmf_phases(card, config):
     return rows
 
 
-def main():
+def kernel_phases(config, params):
+    """Phase 3 for the recurrence kernels: B1, B2 and B3 against their plain
+    versions (B2 also against B1).  These launches count for no path."""
     import torch
-    import yaml
-
-    # 1. device
-    check(torch.cuda.is_available(), "CUDA is not available")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    card = smi.splitlines()[0]
-    kind = torch.cuda.get_device_name(0)
-    log("device", card=card, kind=kind, count=torch.cuda.device_count(),
-        torch=torch.__version__, cuda=torch.version.cuda)
-
-    from drnmf_torch.device import resolve_device
-    from drnmf_torch.dsp.stft import bucket_total, stft_frames
-    from drnmf_torch.dsp.wav import wavwrite
-    from drnmf_torch.dsp.windows import sqrt_hann_periodic
-    from drnmf_torch.enhance import enhance_signals, stage_clock
-    from drnmf_torch.models.drnmf import DRNMFConfig
     from drnmf_torch.convert import init_drnmf_params
-    from drnmf_torch.ops import build, drnmf_scan, snmf_mu
-    from drnmf_torch.train.checkpoint import save_checkpoint
-    from drnmf_torch import enhance_wav
+    from drnmf_torch.models.drnmf import DRNMFConfig
+    from drnmf_torch.ops import drnmf_scan
 
-    resolve_device("cuda")
-
-    # 2. build, one nvcc per source, all started together
-    t0 = time.perf_counter()
-    sources = (drnmf_scan.SOURCE, snmf_mu.SOURCE)
-    with ThreadPoolExecutor(len(sources)) as pool:
-        built = list(pool.map(build.build, sources))
-    drnmf_scan._library()
-    snmf_mu._library()
-    for source, lib in zip(sources, built):
-        log("build", seconds=time.perf_counter() - t0, library=str(lib.name),
-            ptxas=[line.strip() for line in
-                   build.build_log(source).splitlines()
-                   if "registers" in line or "spill" in line
-                   or "Compiling entry" in line])
-
-    # 3. kernel vs plain version
     rng = np.random.default_rng(0)
     f, r, K = 9, 8, 3
     w = rng.uniform(0.05, 1.0, (f, 2 * r)).astype(np.float32)
@@ -531,13 +652,16 @@ def main():
         small_cfg, w, generator=torch.Generator().manual_seed(0), device="cuda")
     x = rng.uniform(0, 1, (3, 11, f)).astype(np.float32)
     x[1, 7:] = small_cfg.mask_value
-    config, params = flagship()
     cases = [("small_B3_T11_F9_2r16_K3", small_cfg, small_params, x),
              ("flagship_B256_T64_F257_2r2000_K5", config, params,
-              rng.uniform(0, 1, (256, 64, 257)).astype(np.float32))]
+              rng.uniform(0, 1, (256, 64, 257)).astype(np.float32)),
+             ("streaming_B64_T16_F257_2r2000_K5", config, params,
+              rng.uniform(0, 1, (STREAMS, MULTI_BLOCK, 257))
+              .astype(np.float32))]
     for name, cfg, prm, xin in cases:
         args = scan_operands(cfg, prm, xin)
         out = drnmf_scan.drnmf_scan_factored(*args)
+        inter = drnmf_scan.drnmf_scan_factored(*args, interleave=True)
         torch.cuda.synchronize()
         ref = drnmf_scan.drnmf_scan_factored_reference(*args)
         torch.cuda.synchronize()
@@ -545,63 +669,435 @@ def main():
         log("kernel", case=name, max_abs_err=err, max_rel_err=rel,
             rtol=KERNEL_RTOL, atol=KERNEL_ATOL, ok=ok)
         check(ok, f"B1 disagrees with its plain version at {name}")
+        err, rel, ok = compare(inter, ref)
+        vs_b1 = (inter - out).abs().max().item()
+        log("interleave_kernel", case=name, max_abs_err=err, max_rel_err=rel,
+            max_abs_diff_to_b1=vs_b1, equal_to_b1=bool(torch.equal(inter, out)),
+            rtol=KERNEL_RTOL, atol=KERNEL_ATOL, ok=ok)
+        check(ok and compare(inter, out)[2],
+              f"B2 disagrees with its plain version or with B1 at {name}")
 
+    rng = np.random.default_rng(6)
+    for name, shape, held_from in (
+            ("ragged_B3_T11_F9_2r16_K3", (3, 11, 9, 16, 3), 7),
+            ("K1_B5_T7_F33_2r14", (5, 7, 33, 14, 1), 4),
+            ("flagship_B256_T8_F257_2r2000_K5", (256, 8, 257, 2000, 5), 5),
+            ("streaming_B64_T16_F257_2r2000_K5",
+             (STREAMS, MULTI_BLOCK, 257, 2000, 5), 9),
+            ("one_stream_B1_T64_F257_2r2000_K5", (1, 64, 257, 2000, 5), None)):
+        args = dense_operands(rng, *shape, held_from=held_from)
+        out = drnmf_scan.drnmf_scan_dense(*args)
+        torch.cuda.synchronize()
+        ref = drnmf_scan.drnmf_scan_dense_reference(*args)
+        err, rel, ok = compare(out, ref)
+        # what each of uk and S moves: a kernel that dropped one would
+        # disagree by this much
+        moved = {}
+        if shape[4] > 1:
+            for operand, at in (("uk", 4), ("s_stack", 5)):
+                cut = list(args)
+                cut[at] = torch.zeros_like(cut[at])
+                moved[operand] = (drnmf_scan.drnmf_scan_dense_reference(*cut)
+                                  - ref).abs().max().item()
+        log("dense_kernel", case=name, max_abs_err=err, max_rel_err=rel,
+            rtol=KERNEL_RTOL, atol=KERNEL_ATOL, ok=ok, max_abs_out=ref.abs()
+            .max().item(), moved_by_operand=moved,
+            tile=list(drnmf_scan.dense_scan_tiles(
+                shape[0], shape[3], torch.cuda.get_device_properties(0)
+                .multi_processor_count)))
+        check(ok, f"B3 disagrees with its plain version at {name}")
+        check(all(m > 100 * KERNEL_ATOL for m in moved.values()),
+              f"an operand of B3 moves nothing at {name}: {moved}")
+
+
+def save_model(work, name, config, params):
+    """Checkpoint and YAML of a model under ``work``; returns their paths."""
+    import yaml
+    from drnmf_torch.train.checkpoint import save_checkpoint
+
+    ckpt = os.path.join(work, f"model_unfolded_snmf_{name}.npz")
+    cfg_path = os.path.join(work, f"params_unfolded_snmf_{name}.yaml")
+    save_checkpoint(ckpt, params)
+    with open(cfg_path, "w") as fh:
+        yaml.safe_dump({"K_layers": config.K_layers, "r": config.r,
+                        "alph": config.alph, "lam1": config.lam1,
+                        "params_untied": list(config.params_untied),
+                        "params_trainable": list(config.params_trainable)},
+                       fh)
+    return cfg_path, ckpt
+
+
+def enhance_main(phase, card, config, params, cfg_path, ckpt, wavs, batch,
+                 kernel, n_calls, n_warm):
+    """Drive the offline entry points: ``enhance_wav.main`` on the wavs, then
+    ``enhance_signals`` on ``batch`` ``n_calls`` times (the first ``n_warm``
+    not timed).  ``kernel`` must launch once per enhance call and no other
+    kernel at all.  Returns (launches, rtf)."""
+    import torch
+    from drnmf_torch import enhance_wav
+    from drnmf_torch.enhance import enhance_signals
+
+    reset_launches()
+    cli_outs = enhance_wav.main(["-c", cfg_path, "-m", ckpt, "-o",
+                                 os.path.join(os.path.dirname(ckpt),
+                                              f"enhanced_{phase}"), *wavs])
+    walls = []
+    for i in range(n_calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = enhance_signals(params, config, batch, N_FFT, HOP,
+                               batch_size=len(batch))
+        torch.cuda.synchronize()
+        if i >= n_warm:
+            walls.append(time.perf_counter() - t0)
+    launches = read_launches()
+    check(len(outs) == len(batch)
+          and all(o.shape == s.shape for o, s in zip(outs, batch)),
+          "enhance_signals returned the wrong shapes")
+    check(all(np.isfinite(o).all() for o in outs + cli_outs),
+          "non-finite enhanced samples")
+    audio_s = sum(len(s) for s in batch) / FS
+    rtf = audio_s / statistics.median(walls)
+    log(phase, launches=launches, rtf=rtf,
+        rtf_runs=[audio_s / w_ for w_ in walls], batch=len(batch),
+        seconds_per_signal=len(batch[0]) / FS, calls=n_calls,
+        calls_timed=n_calls - n_warm, card=card)
+    check(launches[kernel] == 1 + n_calls and only_launched(launches, kernel),
+          f"{phase}: launches {launches}, expected {1 + n_calls} of {kernel} "
+          "(one per enhance call) and none of another kernel")
+    return launches, rtf
+
+
+def parity_phase(phase, config, params, plain):
+    """The whole enhance path against the same path with the recurrence
+    forced to its plain version, on 4 signals of 2 s."""
+    from drnmf_torch.enhance import enhance_signals
+
+    sigs = synth_signals(np.random.default_rng(3), 4, 2.0)
+    fast = enhance_signals(params, config, sigs, N_FFT, HOP)
+    slow = enhance_signals(params, config, sigs, N_FFT, HOP, scan_fn=plain)
+    diff = max(float(np.abs(a - p).max()) for a, p in zip(fast, slow))
+    peak = max(float(np.abs(p).max()) for p in slow)
+    log(phase, max_abs_wave_diff=diff, peak=peak,
+        tol=WAVE_RTOL_OF_PEAK * peak)
+    check(diff <= WAVE_RTOL_OF_PEAK * peak,
+          f"{phase}: whole path disagrees with the all-plain path")
+
+
+def main_path_magnitudes(batch):
+    """The magnitude frames (B, T, F) the enhancer hands the recurrence for
+    this batch of equal-length signals."""
+    import torch
+    from drnmf_torch.dsp.stft import bucket_total, stft_frames
+    from drnmf_torch.dsp.windows import sqrt_hann_periodic
+
+    n = len(batch[0])
+    wav = torch.zeros((len(batch), bucket_total(n, N_FFT, HOP)), device="cuda")
+    wav[:, N_FFT:N_FFT + n] = torch.as_tensor(np.stack(batch), device="cuda")
+    window = torch.as_tensor(sqrt_hann_periodic(N_FFT), device="cuda")
+    with torch.inference_mode():
+        return stft_frames(wav, window, N_FFT, HOP).abs()
+
+
+def stream_phase(card, kind, config, params, kernel):
+    """One stream through ``StreamingEnhancer`` in odd chunks against the
+    offline enhancer on the card."""
+    import torch
+    from drnmf_torch.enhance import enhance_signals
+    from drnmf_torch.streaming import StreamingEnhancer
+
+    block = 64
+    (sig,) = synth_signals(np.random.default_rng(5), 1, 8.0)
+    offline = enhance_signals(params, config, [sig], N_FFT, HOP)[0]
+    reset_launches()
+    enh = StreamingEnhancer(params, config, N_FFT, HOP, block_frames=block)
+    enh.process(np.zeros(enh.latency_samples, np.float32))  # warm-up block
+    enh.reset()
+    warm = read_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [enh.process(sig[i:i + 7001]) for i in range(0, len(sig), 7001)]
+    outs.append(enh.flush())
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    got = np.concatenate(outs)
+    diff, ok = close_to(got, offline)
+    blocks = launches[kernel] - warm[kernel]
+    log("stream", model=kind, kernel=kernel, launches=launches, blocks=blocks,
+        block_frames=block, chunk_samples=7001, seconds_of_audio=8.0,
+        wall_s=wall, ms_per_block=1e3 * wall / max(blocks, 1),
+        rtf=8.0 / wall, max_abs_diff_to_offline=diff,
+        peak=float(np.abs(offline).max()), rtol=STREAM_RTOL,
+        atol=STREAM_ATOL, ok=ok, card=card)
+    check(ok and len(got) == -(-len(sig) // HOP) * HOP
+          and np.isfinite(got).all(),
+          f"stream ({kind}): StreamingEnhancer disagrees with offline")
+    # 8 s are 1,000 hops: 16 blocks of 64 frames, the last one partly padding
+    check(blocks >= len(sig) // (block * HOP)
+          and only_launched(launches, kernel),
+          f"stream ({kind}): launches {launches}, expected {kernel} alone")
+
+
+def multi_phase(card, kind, config, params, kernel, seconds, scan_fn=None):
+    """64 streams in lockstep through ``MultiStreamEnhancer`` under a
+    rotating ``active`` mask (one stream in eight sits a round out), each
+    drained with ``flush_stream`` and its tail; every stream against its
+    offline output.  Returns the phase's launches."""
+    import torch
+    from drnmf_torch.enhance import enhance_signals
+    from drnmf_torch.streaming import MultiStreamEnhancer
+
+    blk = MULTI_BLOCK * HOP
+    rng = np.random.default_rng(8)
+    # lengths differ, so streams end in different rounds with other tails
+    sigs = [(0.1 * rng.standard_normal(int(FS * seconds) - 37 * s))
+            .astype(np.float32) for s in range(STREAMS)]
+    offline = enhance_signals(params, config, sigs, N_FFT, HOP,
+                              batch_size=STREAMS)
+    reset_launches()
+    multi = MultiStreamEnhancer(params, config, STREAMS, N_FFT, HOP,
+                                MULTI_BLOCK, scan_fn=scan_fn)
+    multi.step(np.zeros((STREAMS, blk), np.float32))  # warm-up step
+    multi.flush_stream(0, tail=np.zeros(HOP, np.float32))
+    for s in range(1, STREAMS):
+        multi.reset_stream(s)
+    warm = read_launches()
+    outs = [[] for _ in sigs]
+    fed = np.zeros(STREAMS, np.int64)
+    step_ms, audio_s, rnd = [], 0.0, 0
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter()
+    while True:
+        left = np.array([(fed[s] + 1) * blk <= len(sigs[s])
+                         for s in range(STREAMS)])
+        if not left.any():
+            break
+        active = left & ((rnd + np.arange(STREAMS)) % 8 != 0)
+        rnd += 1
+        if not active.any():
+            continue
+        samples = np.zeros((STREAMS, blk), np.float32)
+        for s in np.nonzero(active)[0]:
+            samples[s] = sigs[s][fed[s] * blk:(fed[s] + 1) * blk]
+        fed += active
+        t0 = time.perf_counter()
+        handle = multi.step_dispatch(samples, active)
+        finals = multi.step_fetch(handle)
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        audio_s += active.sum() * blk / FS
+        for s, y in enumerate(finals):
+            check((y is None) == (not active[s]),
+                  f"multi ({kind}): stream {s} active={active[s]} got {y}")
+            if y is not None:
+                outs[s].append(y)
+    loop_s = time.perf_counter() - t_loop
+    steps_launches = read_launches()
+    t0 = time.perf_counter()
+    for s in range(STREAMS):
+        outs[s].append(multi.flush_stream(s, tail=sigs[s][fed[s] * blk:]))
+    flush_s = time.perf_counter() - t0
+    launches = read_launches()
+    # one all-active step under the profiler, after the counts were read
+    zeros = np.zeros((STREAMS, blk), np.float32)
+    split = profile_split(lambda: multi.step(zeros), top=6)
+    # the profiler may not report a cooperative launch (B3's): without the
+    # recurrence kernel in the trace its idle share says nothing
+    symbol = {"factored": "drnmf_scan_factored_kernel",
+              "interleaved": "drnmf_scan_factored_interleaved_kernel",
+              "dense": "drnmf_scan_dense_kernel"}[kernel]
+    split["recurrence_kernel_traced"] = any(
+        symbol in name for name in split["device_ms_by_kernel"])
+    if not split["recurrence_kernel_traced"]:
+        split["idle_share"] = None  # not measured
+    worst, all_ok = 0.0, True
+    for s in range(STREAMS):
+        got = np.concatenate(outs[s])
+        diff, ok = close_to(got, offline[s])
+        worst = max(worst, diff)
+        all_ok &= (ok and len(got) == -(-len(sigs[s]) // HOP) * HOP
+                   and bool(np.isfinite(got).all()))
+    median_ms = statistics.median(step_ms)
+    if split["idle_share"] is not None:
+        # against the unprofiled step: the profiler slows the host side
+        split["idle_share_of_median_step"] = max(
+            0.0, 1.0 - split["device_busy_ms"] / median_ms)
+    log("multi", model=kind, kernel=kernel, launches=launches,
+        streams=STREAMS, block_frames=MULTI_BLOCK, seconds_per_stream=seconds,
+        steps=len(step_ms), ms_per_step_median=median_ms,
+        ms_per_step_mean=statistics.fmean(step_ms),
+        ms_per_step_max=max(step_ms),
+        aggregate_rtf=audio_s / loop_s,
+        aggregate_rtf_all_active=STREAMS * blk / FS / (median_ms / 1e3),
+        flush_s_for_all_streams=flush_s, max_abs_diff_to_offline=worst,
+        rtol=STREAM_RTOL, atol=STREAM_ATOL, ok=all_ok, step_split=split,
+        card=card)
+    check(all_ok, f"multi ({kind}): a stream disagrees with its offline output")
+    check(steps_launches[kernel] - warm[kernel] == len(step_ms)
+          and only_launched(launches, kernel),
+          f"multi ({kind}): launches {launches} over {len(step_ms)} steps, "
+          f"expected one of {kernel} a step and no other kernel")
+    return launches
+
+
+def serve_phase(card, config, params, cfg_path, ckpt):
+    """The event-loop server through ``serve.main`` in a thread of this
+    process; four clients at once, each against its offline output."""
+    from drnmf_torch import serve
+    from drnmf_torch.enhance import enhance_signals
+
+    n_clients, chunk = 4, 4000
+    sigs = synth_signals(np.random.default_rng(9), n_clients, 3.0)
+    offline = enhance_signals(params, config, sigs, N_FFT, HOP)
+    with socket.socket() as probe:  # a free port for the server to bind
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    failures, results = [], [None] * n_clients
+
+    def run_server():
+        try:
+            serve.main(["-c", cfg_path, "-m", ckpt, "--port", str(port),
+                        "--streams", str(n_clients), "--max-connections",
+                        str(n_clients), "--block-frames", str(MULTI_BLOCK)])
+        except (Exception, SystemExit) as e:  # reported by the check below
+            failures.append(("server", repr(e)))
+
+    def recv_reply(sock):
+        (m,) = struct.unpack("<i", serve._recv_exact(sock, 4))
+        return np.frombuffer(serve._recv_exact(sock, 4 * m), dtype="<f4")
+
+    def run_client(c):
+        try:
+            deadline = time.monotonic() + SOCKET_TIMEOUT_S
+            while True:  # the server listens once its warm-up is done
+                try:
+                    sock = socket.create_connection(("127.0.0.1", port),
+                                                    timeout=SOCKET_TIMEOUT_S)
+                    break
+                except ConnectionRefusedError:
+                    if failures or time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.05)
+            with sock:
+                outs = []
+                for i in range(0, len(sigs[c]), chunk):
+                    part = sigs[c][i:i + chunk]
+                    sock.sendall(struct.pack("<i", part.size) + part.tobytes())
+                    outs.append(recv_reply(sock))
+                sock.sendall(struct.pack("<i", 0))  # flush request
+                outs.append(recv_reply(sock))
+            results[c] = np.concatenate(outs)
+        except Exception as e:  # reported by the check below
+            failures.append((f"client {c}", repr(e)))
+
+    reset_launches()
+    server = threading.Thread(target=run_server, daemon=True)
+    clients = [threading.Thread(target=run_client, args=(c,), daemon=True)
+               for c in range(n_clients)]
+    t0 = time.perf_counter()
+    server.start()
+    for th in clients:
+        th.start()
+    for th in clients + [server]:
+        th.join(timeout=2 * SOCKET_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check(not failures and not server.is_alive()
+          and not any(th.is_alive() for th in clients),
+          f"serve: {failures or 'a thread did not finish'}")
+    worst, all_ok = 0.0, True
+    for c in range(n_clients):
+        diff, ok = close_to(results[c], offline[c])
+        worst, all_ok = max(worst, diff), all_ok and ok
+    log("serve", server="SelectorStreamServer", clients=n_clients,
+        seconds_per_client=3.0, chunk_samples=chunk, launches=launches,
+        wall_s_with_start_up=wall, max_abs_diff_to_offline=worst,
+        rtol=STREAM_RTOL, atol=STREAM_ATOL, ok=all_ok, card=card)
+    check(all_ok, "serve: a client's replies disagree with offline")
+    check(only_launched(launches, "factored"),
+          f"serve: launches {launches}, expected B1 alone")
+    return launches
+
+
+def paced_phase(card, config, params):
+    """``paced_load`` at 64 streams for 5 s: a statistic, not a gate, except
+    that it must finish."""
+    from drnmf_torch.streaming import (MultiStreamEnhancer, paced_load,
+                                       paced_stats)
+
+    reset_launches()
+    multi = MultiStreamEnhancer(params, config, STREAMS, N_FFT, HOP,
+                                MULTI_BLOCK)
+    lat, taken = paced_load(multi, seconds=5.0, fs=FS)
+    launches = read_launches()
+    stats = paced_stats(lat, multi.block_samples / FS)
+    log("paced", streams=STREAMS, block_frames=MULTI_BLOCK, seconds=5.0,
+        blocks_per_stream=int(taken.min()), launches=launches, card=card,
+        **stats)
+    check(int(taken.min()) == int(taken.max()) > 0
+          and only_launched(launches, "factored"),
+          f"paced: blocks taken {taken.tolist()}, launches {launches}")
+    return launches
+
+
+def main():
+    import torch
+
+    # 1. device
+    check(torch.cuda.is_available(), "CUDA is not available")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    card = smi.splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    log("device", card=card, kind=kind, count=torch.cuda.device_count(),
+        torch=torch.__version__, cuda=torch.version.cuda)
+    t_start = time.perf_counter()
+
+    from drnmf_torch.device import resolve_device
+    from drnmf_torch.dsp.wav import wavwrite
+    from drnmf_torch.enhance import enhance_signals, stage_clock
+    from drnmf_torch.ops import build, drnmf_scan, snmf_mu
+
+    resolve_device("cuda")
+
+    # 2. build, one nvcc per source, all started together
+    t0 = time.perf_counter()
+    sources = (drnmf_scan.SOURCE, drnmf_scan.DENSE_SOURCE, snmf_mu.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(build.build, sources))
+    drnmf_scan._library()
+    drnmf_scan._dense_library()
+    snmf_mu._library()
+    for source, lib in zip(sources, built):
+        log("build", seconds=time.perf_counter() - t0, library=str(lib.name),
+            ptxas=[line.strip() for line in
+                   build.build_log(source).splitlines()
+                   if "registers" in line or "spill" in line
+                   or "Compiling entry" in line])
+
+    # 3. kernels vs plain versions
+    config, params = flagship()
+    kernel_phases(config, params)
     snmf_kernel_phase()
 
     # 4. main path, through the entry points, at full width
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "chip_smoke")
     os.makedirs(work, exist_ok=True)
-    ckpt = os.path.join(work, "model_unfolded_snmf_flagship.npz")
-    cfg_path = os.path.join(work, "params_unfolded_snmf_flagship.yaml")
-    save_checkpoint(ckpt, params)
-    with open(cfg_path, "w") as fh:
-        yaml.safe_dump({"K_layers": 5, "r": 1000, "alph": 400.0, "lam1": 1.0,
-                        "params_untied": ["log_D", "log_alph"],
-                        "params_trainable": ["log_D", "log_alph"]}, fh)
+    cfg_path, ckpt = save_model(work, "flagship", config, params)
     wavs = []
     for i, s in enumerate(synth_signals(np.random.default_rng(1), 3, 3.0)):
         wavs.append(os.path.join(work, f"noisy{i}.wav"))
         wavwrite(wavs[-1], FS, s[None])
     batch = [s for s in (0.1 * np.random.default_rng(2).standard_normal(
         (256, FS * 8))).astype(np.float32)]
-
-    drnmf_scan.LAUNCHES = 0
-    cli_outs = enhance_wav.main(["-c", cfg_path, "-m", ckpt, "-o",
-                                 os.path.join(work, "enhanced"), *wavs])
-    walls = []
-    for i in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs = enhance_signals(params, config, batch, N_FFT, HOP,
-                               batch_size=256)
-        torch.cuda.synchronize()
-        if i >= 2:
-            walls.append(time.perf_counter() - t0)
-    launches = drnmf_scan.LAUNCHES
-    check(len(outs) == 256 and all(o.shape == (FS * 8,) for o in outs),
-          "enhance_signals returned the wrong shapes")
-    check(all(np.isfinite(o).all() for o in outs + cli_outs),
-          "non-finite enhanced samples")
-    audio_s = 256 * 8.0
-    rtf = audio_s / statistics.median(walls)
-    log("main", launches_before=0, launches_after=launches,
-        rtf=rtf, rtf_runs=[audio_s / w_ for w_ in walls], batch=256,
-        seconds_per_signal=8.0, card=card)
-    check(launches == 6, f"B1 launched {launches} times on the main path, "
-          "expected one per enhance call (6)")
+    main_launches, rtf = enhance_main("main", card, config, params, cfg_path,
+                                      ckpt, wavs, batch, "factored",
+                                      n_calls=5, n_warm=2)
 
     # 5. whole path vs the all-plain path on the card
-    sigs = synth_signals(np.random.default_rng(3), 4, 2.0)
-    fast = enhance_signals(params, config, sigs, N_FFT, HOP)
-    plain = enhance_signals(params, config, sigs, N_FFT, HOP,
-                            scan_fn=drnmf_scan.drnmf_scan_factored_reference)
-    diff = max(float(np.abs(a - p).max()) for a, p in zip(fast, plain))
-    peak = max(float(np.abs(p).max()) for p in plain)
-    log("parity", max_abs_wave_diff=diff, peak=peak,
-        tol=WAVE_RTOL_OF_PEAK * peak)
-    check(diff <= WAVE_RTOL_OF_PEAK * peak,
-          "whole path disagrees with the all-plain path")
+    parity_phase("parity", config, params,
+                 drnmf_scan.drnmf_scan_factored_reference)
 
     # 6. times at the main path's shapes (B=256, T=1021)
     for _ in range(2):  # the second call is warm
@@ -610,43 +1106,168 @@ def main():
                         lap=stage_clock(stages, "cuda"))
     log("stages", card=card, seconds=stages,
         seconds_total=sum(stages.values()))
-    total = bucket_total(FS * 8, N_FFT, HOP)
-    wav = torch.zeros((256, total), device="cuda")
-    wav[:, N_FFT:N_FFT + FS * 8] = torch.as_tensor(np.stack(batch),
-                                                   device="cuda")
-    window = torch.as_tensor(sqrt_hann_periodic(N_FFT), device="cuda")
-    with torch.inference_mode():
-        mag = stft_frames(wav, window, N_FFT, HOP).abs()
+    mag = main_path_magnitudes(batch)
     args = scan_operands(config, params, mag)
     out = drnmf_scan.drnmf_scan_factored(*args)
+    inter = drnmf_scan.drnmf_scan_factored(*args, interleave=True)
     ref = drnmf_scan.drnmf_scan_factored_reference(*args)
     torch.cuda.synchronize()
     err, rel, ok = compare(out, ref)
+    b2_err, b2_rel, b2_ok = compare(inter, ref)
+    b2_equal = bool(torch.equal(inter, out))
     check(ok, "B1 disagrees with its plain version at the main path's shape")
-    del out, ref
-    ms = cuda_ms(lambda: drnmf_scan.drnmf_scan_factored(*args), 3)
+    check(b2_ok and compare(inter, out)[2],
+          "B2 disagrees with its plain version at the main path's shape")
+    del out, inter, ref
+    # B1, B2, B2, B1 in turns; each figure the mean of its two readings
+    b1_a = cuda_ms(lambda: drnmf_scan.drnmf_scan_factored(*args), 2)
+    b2_a = cuda_ms(lambda: drnmf_scan.drnmf_scan_factored(
+        *args, interleave=True), 2)
+    b2_b = cuda_ms(lambda: drnmf_scan.drnmf_scan_factored(
+        *args, interleave=True), 2)
+    b1_b = cuda_ms(lambda: drnmf_scan.drnmf_scan_factored(*args), 2)
+    ms, b2_ms = (b1_a + b1_b) / 2, (b2_a + b2_b) / 2
     plain_ms = cuda_ms(
         lambda: drnmf_scan.drnmf_scan_factored_reference(*args), 3)
     bound_ms, bound_by = b1_bound(args)
-    log("times", card=card, shape=list(mag.shape), b1_ms=ms, plain_ms=plain_ms,
+    stream_args = scan_operands(config, params, mag[:STREAMS, :MULTI_BLOCK]
+                                .contiguous())
+    stream_ms = {
+        "b1": cuda_ms(lambda: drnmf_scan.drnmf_scan_factored(*stream_args), 20),
+        "b2": cuda_ms(lambda: drnmf_scan.drnmf_scan_factored(
+            *stream_args, interleave=True), 20),
+        "plain": cuda_ms(lambda: drnmf_scan.drnmf_scan_factored_reference(
+            *stream_args), 5)}
+    stream_bound = b1_bound(stream_args)
+    log("times", card=card, shape=list(mag.shape), b1_ms=ms, b2_ms=b2_ms,
+        b1_ms_runs=[b1_a, b1_b], b2_ms_runs=[b2_a, b2_b], plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
-        max_rel_err=rel, rtf=rtf)
+        max_rel_err=rel, b2_max_abs_err=b2_err, b2_equal_to_b1=b2_equal,
+        streaming_shape=[STREAMS, MULTI_BLOCK], streaming_ms=stream_ms,
+        streaming_bound_ms=stream_bound[0], streaming_bound_by=stream_bound[1],
+        rtf=rtf)
+    del args, stream_args
+
+    # 7. the dense-U route through the same entry points
+    dense_config, dense_params = dense_flagship(config, params)
+    dense_cfg_path, dense_ckpt = save_model(work, "flagship_dense_u",
+                                            dense_config, dense_params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enhance_signals(dense_params, dense_config, batch, N_FFT, HOP,
+                    batch_size=256)  # also warms B3 at this shape
+    torch.cuda.synchronize()
+    first_call_s = time.perf_counter() - t0
+    # 256 signals a call if a call stays within a few seconds, else 64
+    dense_batch = batch if first_call_s <= 6.0 else batch[:64]
+    log("dense_batch", first_call_seconds=first_call_s,
+        batch=len(dense_batch), limit_seconds=6.0)
+    dense_launches, dense_rtf = enhance_main(
+        "dense_main", card, dense_config, dense_params, dense_cfg_path,
+        dense_ckpt, wavs, dense_batch, "dense", n_calls=3, n_warm=1)
+    parity_phase("dense_parity", dense_config, dense_params,
+                 drnmf_scan.drnmf_scan_dense_reference)
+    dense_mag = mag[:len(dense_batch)].contiguous()
+    del mag
+    args = scan_operands(dense_config, dense_params, dense_mag)
+    out = drnmf_scan.drnmf_scan_dense(*args)
+    ref = drnmf_scan.drnmf_scan_dense_reference(*args)
+    torch.cuda.synchronize()
+    b3_err, b3_rel, ok = compare(out, ref)
+    check(ok, "B3 disagrees with its plain version at the main path's shape")
+    del out, ref
+    # plain, B3, B3, plain in turns
+    p_a = cuda_ms(lambda: drnmf_scan.drnmf_scan_dense_reference(*args), 1)
+    b3_a = cuda_ms(lambda: drnmf_scan.drnmf_scan_dense(*args), 1)
+    b3_b = cuda_ms(lambda: drnmf_scan.drnmf_scan_dense(*args), 1)
+    p_b = cuda_ms(lambda: drnmf_scan.drnmf_scan_dense_reference(*args), 1)
+    b3_ms, b3_plain_ms = (b3_a + b3_b) / 2, (p_a + p_b) / 2
+    b3_bound_ms, b3_bound_by = b3_bound(args)
+    stream_args = scan_operands(dense_config, dense_params,
+                                dense_mag[:STREAMS, :MULTI_BLOCK].contiguous())
+    dense_stream_ms = {
+        "b3": cuda_ms(lambda: drnmf_scan.drnmf_scan_dense(*stream_args), 20),
+        "plain": cuda_ms(lambda: drnmf_scan.drnmf_scan_dense_reference(
+            *stream_args), 5)}
+    dense_stream_bound = b3_bound(stream_args)
+    log("dense_times", card=card, shape=list(dense_mag.shape), b3_ms=b3_ms,
+        b3_ms_runs=[b3_a, b3_b], plain_ms=b3_plain_ms,
+        plain_ms_runs=[p_a, p_b], bound_ms=b3_bound_ms, bound_by=b3_bound_by,
+        max_abs_err=b3_err, max_rel_err=b3_rel,
+        streaming_shape=[STREAMS, MULTI_BLOCK], streaming_ms=dense_stream_ms,
+        streaming_bound_ms=dense_stream_bound[0],
+        streaming_bound_by=dense_stream_bound[1], rtf=dense_rtf)
+    del args, stream_args, dense_mag
+
+    # 8. the online path
+    stream_phase(card, "frozen_u", config, params, "factored")
+    stream_phase(card, "dense_u", dense_config, dense_params, "dense")
+    multi_launches = {
+        "multi_frozen_u": multi_phase(card, "frozen_u", config, params,
+                                      "factored", 4.0),
+        "multi_frozen_u_interleaved": multi_phase(
+            card, "frozen_u_interleaved", config, params, "interleaved", 2.0,
+            scan_fn=functools.partial(drnmf_scan.drnmf_scan_factored,
+                                      interleave=True)),
+        "multi_dense_u": multi_phase(card, "dense_u", dense_config,
+                                     dense_params, "dense", 2.0)}
+    serve_launches = serve_phase(card, config, params, cfg_path, ckpt)
+    paced_launches = paced_phase(card, config, params)
+    del dense_params
 
     snmf_rows = snmf_phases(card, config)
 
-    print(json.dumps({"kernels": [{
+    def by_path(kernel):
+        paths = {"main": main_launches, "dense_main": dense_launches,
+                 **multi_launches, "serve": serve_launches,
+                 "paced": paced_launches}
+        return {path: counts[kernel] for path, counts in paths.items()
+                if counts[kernel]}
+
+    scan_rows = [{
         "name": "drnmf_scan_factored",
         "route": "cuda",
         "source": "drnmf_torch/ops/csrc/drnmf_scan_factored.cu",
         "replaces": "drnmf_tpu/ops/pallas/drnmf_scan.py:169",
-        "launches": launches,
+        "launches": main_launches["factored"],
+        "launches_by_path": by_path("factored"),
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }] + snmf_rows}), flush=True)
+    }, {
+        "name": "drnmf_scan_factored_interleaved",
+        "route": "cuda",
+        "source": "drnmf_torch/ops/csrc/drnmf_scan_factored.cu",
+        "replaces": "drnmf_tpu/ops/pallas/drnmf_scan.py:213",
+        "launches": multi_launches["multi_frozen_u_interleaved"]["interleaved"],
+        "launches_by_path": by_path("interleaved"),
+        "max_abs_err": b2_err,
+        "ms": b2_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "drnmf_scan_dense",
+        "route": "cuda",
+        "source": "drnmf_torch/ops/csrc/drnmf_scan_dense.cu",
+        "replaces": "drnmf_tpu/ops/pallas/drnmf_scan.py:48",
+        "launches": dense_launches["dense"],
+        "launches_by_path": by_path("dense"),
+        "max_abs_err": b3_err,
+        "ms": b3_ms,
+        "plain_ms": b3_plain_ms,
+        "bound_ms": b3_bound_ms,
+        "bound_by": b3_bound_by,
+        "library_ms": None,
+    }]
+    check(all(row["launches"] > 0 for row in scan_rows + snmf_rows),
+          "a kernel was launched on no path")
+    log("done", seconds_after_device_phase=time.perf_counter() - t_start)
+    print(json.dumps({"kernels": scan_rows + snmf_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,13 +14,20 @@ to find:
 - ``data``     -- masked sequences -> frame matrix
 - ``utils``    -- the hash-keyed SNMF dictionary cache
 - ``enhance``  -- the batch enhancer (waveform in, enhanced waveform out)
+- ``streaming`` -- the online enhancers (``StreamingEnhancer``,
+                  ``MultiStreamEnhancer``) and the paced-load harness
 - ``convert``  -- parameters across from the JAX package, and init
 - ``config``   -- YAML model config -> ``DRNMFConfig`` / ``SNMFParams``;
                   the artifact hash
 - ``enhance_wav`` -- command line: config + checkpoint + wavs -> wavs
+- ``serve``    -- command line: the online enhancement server over TCP
 
 This package never imports ``jax`` or ``drnmf_tpu``; importing it sets no
 process-global torch state.
 """
 
 __version__ = "0.1.0"
+
+from .streaming import MultiStreamEnhancer, StreamingEnhancer  # noqa: E402
+
+__all__ = ["MultiStreamEnhancer", "StreamingEnhancer"]

@@ -1,5 +1,6 @@
 """The one place that sets up the device for the port's entry points."""
 
+import numpy as np
 import torch
 
 
@@ -20,3 +21,11 @@ def resolve_device(device="cuda") -> torch.device:
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def params_on_device(params: dict, device) -> dict:
+    """name -> tensor or array -> name -> float32 tensor on ``device`` (a
+    tensor already there is passed through, not copied)."""
+    return {k: (v if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.array(v, np.float32)))
+            .to(device, torch.float32) for k, v in params.items()}

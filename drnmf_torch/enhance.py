@@ -2,8 +2,9 @@
 
 STFT -> magnitude -> DR-NMF ratio mask -> masked complex spectrum ->
 overlap-add iSTFT over a batch of equal-padded utterances, all on one device
-with no host round trip in between.  The recurrence runs in kernel B1 on the
-card (see ``ops.drnmf_scan``).
+with no host round trip in between.  On the card the recurrence runs in
+kernel B1 (frozen-U model) or kernel B3 (dense-U model), by the routing rule
+of ``models.drnmf`` (see ``ops.drnmf_scan``).
 """
 
 import time
@@ -11,7 +12,7 @@ import time
 import numpy as np
 import torch
 
-from .device import resolve_device
+from .device import params_on_device, resolve_device
 from .dsp.stft import bucket_total, istft_frames, stft_frames
 from .dsp.windows import sqrt_hann_periodic
 from .models.drnmf import DRNMFConfig, drnmf_forward
@@ -51,7 +52,7 @@ def make_enhancer(config: DRNMFConfig, n_fft: int = 512, hop: int = 128,
     float32 on ``device``, already padded as :func:`dsp.stft.pad_signal`
     does.  The output has the same length; slice ``[n_fft:-n_fft][:nsampl]``
     per utterance to undo the edge pads (or use :func:`enhance_signals`).
-    ``scan_fn`` replaces kernel B1 on the recurrence (see
+    ``scan_fn`` replaces the recurrence's kernel wrapper, B1's or B3's (see
     ``models.drnmf._scan_hidden``).  ``lap`` (from :func:`stage_clock`) is
     called after the stages ``stft``, ``mask`` and ``istft``.
     """
@@ -86,9 +87,7 @@ def enhance_signals(params, config: DRNMFConfig, signals, n_fft: int = 512,
     """
     device = resolve_device(device)
     lap = lap or _no_lap
-    params = {k: (v if isinstance(v, torch.Tensor)
-                  else torch.from_numpy(np.array(v, np.float32)))
-              .to(device, torch.float32) for k, v in params.items()}
+    params = params_on_device(params, device)
     enhance = make_enhancer(config, n_fft, hop, device, scan_fn, lap)
     out = []
     for start in range(0, len(signals), batch_size):

@@ -14,11 +14,22 @@ Parameters are the flat name -> tensor dict of *alternate* (log-domain)
 tensors; layouts are batch-major (B, T, F) in and (B, T, 2r) hidden.  Masked
 timesteps (all features == mask_value) hold the carried state.
 
-The recurrence of the configuration every shipped model uses (relu, input to
-every layer, frozen U folded, S factored) goes through
-``ops.drnmf_scan.drnmf_scan_factored``: kernel B1 on CUDA tensors, its plain
-version on CPU tensors.  Every other configuration runs the plain time loop
-in ``_scan_hidden``.  Dropout and training belong to the training side.
+Routing of the recurrence (``_scan_hidden``), a rule and not an option.  A
+"plain" configuration is relu, input to every layer, top layer only:
+
+- plain, frozen U folded, S factored (every shipped model) ->
+  ``ops.drnmf_scan.drnmf_scan_factored``: kernel B1 on CUDA tensors;
+- plain, U dense (U trains, or a checkpoint whose U broke the fold's
+  structure, see ``ensure_fold_valid``) -> ``ops.drnmf_scan.drnmf_scan_dense``
+  with S materialised dense: kernel B3 on CUDA tensors;
+- anything else (another activation, no input to the layers,
+  ``return_all_hidden``, folded U with ``factored_S`` off) -> the plain time
+  loop in ``_scan_hidden``.
+
+On CPU tensors both wrappers run their plain versions.  The recurrence can
+start from a carried state (B, 2r) instead of the model's ``h0``, which is
+how a stream continues from block to block (``streaming.py``).  Dropout and
+training belong to the training side.
 """
 
 import dataclasses
@@ -29,7 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.drnmf_scan import drnmf_scan_factored
+from ..ops.drnmf_scan import drnmf_scan_dense, drnmf_scan_factored
 
 _EPS7 = 1e-7
 
@@ -164,11 +175,13 @@ def u_terms(U, h, K: int):
     return [h @ U[k] for k in range(K)]
 
 
-def _effective_matrices(params: dict, config: DRNMFConfig):
+def _effective_matrices(params: dict, config: DRNMFConfig,
+                        dense_s: bool = False):
     """Per-layer U, S, W, b from the alternate params (reference
     enhance.py:162-204).  U is a FoldedU when ``u_is_foldable(config)``,
     else K dense (2r, 2r) matrices; each S_k is the pair (Dhat, Dhat/alph)
-    when ``config.factored_S``, else a dense (2r, 2r) matrix."""
+    when ``config.factored_S`` and not ``dense_s``, else a dense (2r, 2r)
+    matrix."""
     K = config.K_layers
     d_names = config.untied_names("log_D")
     a_names = config.untied_names("log_alph")
@@ -193,7 +206,7 @@ def _effective_matrices(params: dict, config: DRNMFConfig):
     for k in range(1, K):
         dk = dhat(k)
         alph = torch.exp(params[a_names[k]])
-        if config.factored_S:
+        if config.factored_S and not dense_s:
             S.append((dk, dk / alph))
         else:
             eye = torch.eye(config.hidden_dim, dtype=dk.dtype, device=dk.device)
@@ -241,65 +254,143 @@ def _h0(params, config):
     return params["h0"]
 
 
-def is_factored_plain(config: DRNMFConfig, U, S) -> bool:
-    """The configuration kernel B1 computes (the "plain" test of
-    drnmf_tpu/models/drnmf.py:478-479, plus the fold and the factoring):
-    relu, input to every layer, top layer only, U folded, S factored."""
+def is_plain(config: DRNMFConfig) -> bool:
+    """The "plain" test of drnmf_tpu/models/drnmf.py:478-479 without its
+    dropout term: relu, input to every layer, top layer only."""
     return (config.activation == "relu" and config.connect_input_to_layers
-            and not config.return_all_hidden and isinstance(U, FoldedU)
+            and not config.return_all_hidden)
+
+
+def is_factored_plain(config: DRNMFConfig, U, S) -> bool:
+    """The configuration kernels B1 and B2 compute: plain, U folded, S
+    factored."""
+    return (is_plain(config) and isinstance(U, FoldedU)
             and (config.K_layers == 1 or isinstance(S[0], tuple)))
 
 
-def _factored_operands(params, config, x, step_mask, U, S, W, b):
-    bsz, n2r = x.shape[0], config.hidden_dim
-    h_init = _h0(params, config)[None, :].expand(bsz, n2r).contiguous()
+def is_dense_plain(config: DRNMFConfig, U, S) -> bool:
+    """The configuration kernel B3 computes: plain, U and S dense."""
+    return (is_plain(config) and not isinstance(U, FoldedU)
+            and (config.K_layers == 1 or not isinstance(S[0], tuple)))
+
+
+def _initial_state(h0, config, bsz, state):
+    """The (B, 2r) state the scan starts from: the carried ``state`` when
+    given, else the model's ``h0`` for every row."""
+    if state is None:
+        return h0[None, :].expand(bsz, config.hidden_dim)
+    if tuple(state.shape) != (bsz, config.hidden_dim):
+        raise ValueError(f"state has shape {tuple(state.shape)}, expected "
+                         f"{(bsz, config.hidden_dim)}")
+    return state
+
+
+def _factored_weights(config, U, S, W, b):
+    """(diag1, off1, c_uk, dkT stack, dka stack, b stack) of
+    ``drnmf_scan_factored``, all contiguous."""
     if S:
         dkt = torch.stack([s[0].T for s in S])
     else:  # K == 1: the kernel never reads it
-        dkt = x.new_zeros((1, n2r, x.shape[-1]))
+        dkt = W[0].new_zeros((1, config.hidden_dim, W[0].shape[0]))
     dka = torch.stack([W[0]] + [s[1] for s in S])
-    return (x.contiguous(), step_mask.contiguous(), h_init, U.diag1.contiguous(),
-            U.off1, U.c, dkt, dka, torch.stack(b))
+    return (U.diag1.contiguous(), U.off1, U.c, dkt, dka, torch.stack(b))
 
 
-def factored_scan_operands(params: dict, config: DRNMFConfig, x, step_mask):
+def _dense_weights(config, U, S, W, b):
+    """(u1, uk, S stack, W stack, b stack) of ``drnmf_scan_dense``, all
+    contiguous.  K == 1: the kernel reads neither uk nor the S dummy."""
+    n2r = config.hidden_dim
+    uk = U[1] if len(U) > 1 else torch.zeros_like(U[0])
+    s_stack = torch.stack(S) if S else W[0].new_zeros((1, n2r, n2r))
+    return (U[0].contiguous(), uk.contiguous(), s_stack, torch.stack(W),
+            torch.stack(b))
+
+
+def _scan_operands(h0, config, x, step_mask, weights, state):
+    h_init = _initial_state(h0, config, x.shape[0], state).contiguous()
+    return (x.contiguous(), step_mask.contiguous(), h_init, *weights)
+
+
+def factored_scan_operands(params: dict, config: DRNMFConfig, x, step_mask,
+                           state=None):
     """The arguments of ``drnmf_scan_factored`` for this model and input:
     (x, step_mask, h0 (B, 2r), diag1, off1, c_uk, dkT stack, dka stack,
     b stack), all contiguous.  Requires ``is_factored_plain``."""
     U, S, W, b = _effective_matrices(params, config)
     if not is_factored_plain(config, U, S):
         raise ValueError("config is not the folded + factored plain form")
-    return _factored_operands(params, config, x, step_mask, U, S, W, b)
+    return _scan_operands(_h0(params, config), config, x, step_mask,
+                          _factored_weights(config, U, S, W, b), state)
+
+
+def dense_scan_operands(params: dict, config: DRNMFConfig, x, step_mask,
+                        state=None):
+    """The arguments of ``drnmf_scan_dense`` for this model and input:
+    (x, step_mask, h0 (B, 2r), u1, uk, S stack, W stack, b stack), all
+    contiguous.  Requires a plain configuration whose U is not folded."""
+    U, S, W, b = _effective_matrices(params, config, dense_s=True)
+    if not is_dense_plain(config, U, S):
+        raise ValueError("config is not the dense-U plain form")
+    return _scan_operands(_h0(params, config), config, x, step_mask,
+                          _dense_weights(config, U, S, W, b), state)
+
+
+def make_scan(params: dict, config: DRNMFConfig):
+    """Prepare this model's recurrence once (the effective matrices and the
+    kernels' weight stacks) and return ``run(x, step_mask, scan_fn=None,
+    state=None)``, which has the semantics of :func:`_scan_hidden`.  A
+    caller that scans many inputs with fixed parameters (a stream, block
+    after block) keeps the returned function."""
+    K, n2r = config.K_layers, config.hidden_dim
+    dense_route = is_plain(config) and not u_is_foldable(config)
+    U, S, W, b = _effective_matrices(params, config, dense_s=dense_route)
+    h0 = _h0(params, config)
+    if is_factored_plain(config, U, S):
+        kernel, weights = drnmf_scan_factored, _factored_weights(
+            config, U, S, W, b)
+    elif dense_route:
+        kernel, weights = drnmf_scan_dense, _dense_weights(config, U, S, W, b)
+    else:
+        kernel = weights = None
+
+    def run(x, step_mask, scan_fn=None, state=None):
+        if kernel is not None:
+            scan = kernel if scan_fn is None else scan_fn
+            return scan(*_scan_operands(h0, config, x, step_mask, weights,
+                                        state))
+        carry = _initial_state(h0, config, x.shape[0], state)
+        if config.return_all_hidden:
+            # carry = concat of all K layers' hidden; the recurrent input is
+            # the last block; the initial state tiled K times
+            carry = carry.repeat(1, K)
+        outs = []
+        for t in range(x.shape[1]):
+            h_prev = carry[:, -n2r:] if config.return_all_hidden else carry
+            layers = _cell_layers(config, U, S, W, b, h_prev, x[:, t])
+            out = (torch.cat(layers, dim=1) if config.return_all_hidden
+                   else layers[-1])
+            carry = torch.where(step_mask[:, t, None], out, carry)
+            outs.append(carry)
+        if not outs:
+            return x.new_empty((x.shape[0], 0, carry.shape[-1]))
+        return torch.stack(outs, dim=1)
+
+    return run
 
 
 def _scan_hidden(params: dict, config: DRNMFConfig, x, step_mask,
-                 scan_fn=None):
+                 scan_fn=None, state=None):
     """Run the recurrence.  x: (B, T, F); step_mask: (B, T) bool.
     Returns hidden states (B, T, 2r), or (B, T, K*2r) with
-    ``return_all_hidden``.  ``scan_fn`` replaces ``drnmf_scan_factored``
-    (chip_smoke.py passes the plain version through ``enhance_signals`` to
-    compare the whole path on the card)."""
-    K = config.K_layers
-    U, S, W, b = _effective_matrices(params, config)
-    if is_factored_plain(config, U, S):
-        scan = drnmf_scan_factored if scan_fn is None else scan_fn
-        return scan(*_factored_operands(params, config, x, step_mask,
-                                        U, S, W, b))
-
-    bsz, n2r = x.shape[0], config.hidden_dim
-    carry = _h0(params, config)[None, :].expand(bsz, n2r)
-    if config.return_all_hidden:
-        # carry = concat of all K layers' hidden; the recurrent input is the
-        # last block; h0 tiled K times
-        carry = carry.repeat(1, K)
-    outs = []
-    for t in range(x.shape[1]):
-        h_prev = carry[:, -n2r:] if config.return_all_hidden else carry
-        layers = _cell_layers(config, U, S, W, b, h_prev, x[:, t])
-        out = torch.cat(layers, dim=1) if config.return_all_hidden else layers[-1]
-        carry = torch.where(step_mask[:, t, None], out, carry)
-        outs.append(carry)
-    return torch.stack(outs, dim=1)
+    ``return_all_hidden``.  The route follows the rule in the module
+    docstring.  ``scan_fn`` replaces the route's kernel wrapper
+    (``drnmf_scan_factored`` or ``drnmf_scan_dense``; chip_smoke.py passes
+    the plain versions through ``enhance_signals`` to compare the whole
+    path on the card).  ``state`` (B, 2r) is the top layer's state to start
+    from in place of the model's h0; the state after the call is the last
+    step of the output (its last 2r columns)."""
+    return make_scan(params, config)(x, step_mask, scan_fn=scan_fn,
+                                     state=state)
 
 
 def _heads(params: dict, config: DRNMFConfig, hidden):
@@ -327,12 +418,13 @@ def step_mask_from_input(x, mask_value: float):
 
 
 def drnmf_forward(params: dict, config: DRNMFConfig, x,
-                  return_parts: bool = False, scan_fn=None):
+                  return_parts: bool = False, scan_fn=None, state=None):
     """Noisy magnitude spectrogram (B, T, F) -> ratio mask (B, T, F).  With
     ``return_parts=True`` also returns (hidden, clean_est, noise_est).
-    ``scan_fn``: see ``_scan_hidden``."""
+    ``scan_fn`` and ``state``: see ``_scan_hidden``."""
     step_mask = step_mask_from_input(x, config.mask_value)
-    hidden = _scan_hidden(params, config, x, step_mask, scan_fn=scan_fn)
+    hidden = _scan_hidden(params, config, x, step_mask, scan_fn=scan_fn,
+                          state=state)
     clean_est, noise_est = _heads(params, config, hidden)
     irm = _ratio_mask(clean_est, noise_est, config.transform_before_irm)
     if return_parts:

@@ -29,6 +29,18 @@
 // split with shared-memory-resident weight slices, or TF32/bf16 wgmma, is
 // later work.  f32 FMA on CUDA cores; no tensor cores.
 //
+// The interleaved variant (second entry, drnmf_scan_factored_interleaved)
+// replaces drnmf_scan.py::_kernel_factored_interleaved.  The TPU kernel cuts
+// the batch into two halves so that one half's product issues during the
+// other's dependency stall.  Here a block of 2*THREADS threads holds two
+// independent groups of ROWS rows: each group is THREADS threads running
+// the chain above on its own shared-memory buffers and meeting on its own
+// named barrier (bar.sync id, THREADS) in place of __syncthreads, so while
+// one group waits at a barrier or in a reduction the scheduler issues the
+// other group's products.  Per-row arithmetic, thread for thread, is the
+// first entry's, so the two agree bit for bit; what changes is twice the
+// warps on an SM and half the blocks.
+//
 // Plain C interface (loaded with ctypes); launches on the caller's stream,
 // allocates nothing, returns cudaGetLastError().
 
@@ -49,6 +61,17 @@ __host__ __device__ inline size_t smem_floats(int F, int N) {
          (size_t)WARPS * ROWS * FT * 32 + WARPS * ROWS + 2 * ROWS;
 }
 
+// Barrier of one group of THREADS threads: the whole block when it holds one
+// group, else the group's own named barrier (0 is __syncthreads's).
+template <int GROUPS>
+__device__ __forceinline__ void group_sync(int group) {
+  if (GROUPS == 1) {
+    __syncthreads();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(group + 1), "r"(THREADS) : "memory");
+  }
+}
+
 // acc = src (ROWS x F, shared) @ w (F x N, global), then the layer's
 // epilogue writes hid.  Threads own columns; each loaded weight element
 // serves all ROWS rows.
@@ -57,13 +80,13 @@ __device__ void project(const float* __restrict__ w, const float* src,
                         const float* __restrict__ bias,
                         const float* __restrict__ diag1, float off1,
                         float c_uk, const float* h, float* hid,
-                        const float* rs, int F, int N) {
+                        const float* rs, int F, int N, int tid) {
   for (int j0 = 0; j0 < N; j0 += THREADS * COLS) {
     float acc[COLS][ROWS];
     int jj[COLS];
 #pragma unroll
     for (int c = 0; c < COLS; ++c) {
-      jj[c] = j0 + threadIdx.x + c * THREADS;
+      jj[c] = j0 + tid + c * THREADS;
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) acc[c][r] = 0.f;
     }
@@ -102,11 +125,12 @@ __device__ void project(const float* __restrict__ w, const float* src,
 // resid = xs - hid (ROWS x N, shared) @ wt (N x F, global).  Lanes own
 // features (coalesced reads of a weight row), warps split the contraction,
 // and a shared-memory pass sums the warps' partials.
+template <int GROUPS>
 __device__ void back_project(const float* __restrict__ wt, const float* hid,
                              const float* xs, float* resid, float* red,
-                             int F, int N) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+                             int F, int N, int tid, int group) {
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   for (int fb = 0; fb < F; fb += FT * 32) {
     float acc[FT][ROWS];
 #pragma unroll
@@ -132,8 +156,8 @@ __device__ void back_project(const float* __restrict__ wt, const float* hid,
 #pragma unroll
       for (int r = 0; r < ROWS; ++r)
         red[(warp * ROWS + r) * FT * 32 + q * 32 + lane] = acc[q][r];
-    __syncthreads();
-    for (int i = threadIdx.x; i < ROWS * FT * 32; i += THREADS) {
+    group_sync<GROUPS>(group);
+    for (int i = tid; i < ROWS * FT * 32; i += THREADS) {
       int r = i / (FT * 32);
       int fi = i - r * FT * 32;
       int f = fb + fi;
@@ -142,12 +166,15 @@ __device__ void back_project(const float* __restrict__ wt, const float* hid,
       for (int w = 0; w < WARPS; ++w) s += red[(w * ROWS + r) * FT * 32 + fi];
       resid[r * F + f] = xs[r * F + f] - s;
     }
-    __syncthreads();
+    group_sync<GROUPS>(group);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-drnmf_scan_factored_kernel(const float* __restrict__ x,
+// The scan of one group of THREADS threads over its ROWS rows.  GROUPS is
+// the number of such groups in the block (1: the plain entry; 2: the
+// interleaved entry, each group on its own buffers and barrier).
+template <int GROUPS>
+__device__ void scan_group(const float* __restrict__ x,
                            const unsigned char* __restrict__ mask,
                            const float* __restrict__ h0,
                            const float* __restrict__ diag1,
@@ -159,7 +186,9 @@ drnmf_scan_factored_kernel(const float* __restrict__ x,
                            float* __restrict__ out,
                            int B, int T, int F, int N, int K) {
   extern __shared__ float smem[];
-  float* h = smem;
+  const int group = GROUPS == 1 ? 0 : threadIdx.x / THREADS;
+  const int tid = GROUPS == 1 ? threadIdx.x : threadIdx.x % THREADS;
+  float* h = smem + (size_t)group * smem_floats(F, N);
   float* hid = h + ROWS * N;
   float* xs = hid + ROWS * N;
   float* resid = xs + ROWS * F;
@@ -168,34 +197,34 @@ drnmf_scan_factored_kernel(const float* __restrict__ x,
   float* rs = wsum + WARPS * ROWS;
   float* msk = rs + ROWS;
 
-  const int b0 = blockIdx.x * ROWS;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int b0 = (blockIdx.x * GROUPS + group) * ROWS;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const float off1 = *off1_p;
   const float c_uk = *c_uk_p;
 
   // rows past the batch run on zeros and are never written out
-  for (int i = threadIdx.x; i < ROWS * N; i += THREADS) {
+  for (int i = tid; i < ROWS * N; i += THREADS) {
     int r = i / N;
     int row = b0 + r;
     h[i] = row < B ? h0[(size_t)row * N + (i - r * N)] : 0.f;
   }
-  __syncthreads();
+  group_sync<GROUPS>(group);
 
   for (int t = 0; t < T; ++t) {
-    for (int i = threadIdx.x; i < ROWS * F; i += THREADS) {
+    for (int i = tid; i < ROWS * F; i += THREADS) {
       int r = i / F;
       int row = b0 + r;
       xs[i] = row < B ? x[((size_t)row * T + t) * F + (i - r * F)] : 0.f;
     }
-    if (threadIdx.x < ROWS) {
-      int row = b0 + threadIdx.x;
-      msk[threadIdx.x] = (row < B && mask[(size_t)row * T + t]) ? 1.f : 0.f;
+    if (tid < ROWS) {
+      int row = b0 + tid;
+      msk[tid] = (row < B && mask[(size_t)row * T + t]) ? 1.f : 0.f;
     }
     float part[ROWS];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) part[r] = 0.f;
-    for (int j = threadIdx.x; j < N; j += THREADS)
+    for (int j = tid; j < N; j += THREADS)
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) part[r] += h[r * N + j];
 #pragma unroll
@@ -204,32 +233,69 @@ drnmf_scan_factored_kernel(const float* __restrict__ x,
         part[r] += __shfl_down_sync(0xffffffffu, part[r], o);
       if (lane == 0) wsum[warp * ROWS + r] = part[r];
     }
-    __syncthreads();
-    if (threadIdx.x < ROWS) {
+    group_sync<GROUPS>(group);
+    if (tid < ROWS) {
       float s = 0.f;
-      for (int w = 0; w < WARPS; ++w) s += wsum[w * ROWS + threadIdx.x];
-      rs[threadIdx.x] = s;
+      for (int w = 0; w < WARPS; ++w) s += wsum[w * ROWS + tid];
+      rs[tid] = s;
     }
-    __syncthreads();
+    group_sync<GROUPS>(group);
 
-    project<true>(dka, xs, b, diag1, off1, c_uk, h, hid, rs, F, N);
-    __syncthreads();
+    project<true>(dka, xs, b, diag1, off1, c_uk, h, hid, rs, F, N, tid);
+    group_sync<GROUPS>(group);
     for (int k = 1; k < K; ++k) {
-      back_project(dkt + (size_t)(k - 1) * N * F, hid, xs, resid, red, F, N);
+      back_project<GROUPS>(dkt + (size_t)(k - 1) * N * F, hid, xs, resid, red,
+                           F, N, tid, group);
       project<false>(dka + (size_t)k * F * N, resid, b + (size_t)k * N,
-                     diag1, off1, c_uk, h, hid, rs, F, N);
-      __syncthreads();
+                     diag1, off1, c_uk, h, hid, rs, F, N, tid);
+      group_sync<GROUPS>(group);
     }
 
-    for (int i = threadIdx.x; i < ROWS * N; i += THREADS) {
+    for (int i = tid; i < ROWS * N; i += THREADS) {
       int r = i / N;
       int row = b0 + r;
       float v = msk[r] != 0.f ? hid[i] : h[i];
       h[i] = v;
       if (row < B) out[((size_t)row * T + t) * N + (i - r * N)] = v;
     }
-    __syncthreads();
+    group_sync<GROUPS>(group);
   }
+}
+
+#define DRNMF_SCAN_ARGS                                                      \
+  const float *__restrict__ x, const unsigned char *__restrict__ mask,       \
+      const float *__restrict__ h0, const float *__restrict__ diag1,         \
+      const float *__restrict__ off1, const float *__restrict__ c_uk,        \
+      const float *__restrict__ dkt, const float *__restrict__ dka,          \
+      const float *__restrict__ b, float *__restrict__ out, int B, int T,    \
+      int F, int N, int K
+
+__global__ void __launch_bounds__(THREADS)
+drnmf_scan_factored_kernel(DRNMF_SCAN_ARGS) {
+  scan_group<1>(x, mask, h0, diag1, off1, c_uk, dkt, dka, b, out, B, T, F, N,
+                K);
+}
+
+__global__ void __launch_bounds__(2 * THREADS)
+drnmf_scan_factored_interleaved_kernel(DRNMF_SCAN_ARGS) {
+  scan_group<2>(x, mask, h0, diag1, off1, c_uk, dkt, dka, b, out, B, T, F, N,
+                K);
+}
+
+template <int GROUPS, typename KernelT>
+int launch(KernelT kernel, const float* x, const unsigned char* mask,
+           const float* h0, const float* diag1, const float* off1,
+           const float* c_uk, const float* dkt, const float* dka,
+           const float* b, float* out, int B, int T, int F, int N, int K,
+           void* stream) {
+  const size_t smem = GROUPS * smem_floats(F, N) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((B + ROWS * GROUPS - 1) / (ROWS * GROUPS));
+  kernel<<<grid, GROUPS * THREADS, smem, (cudaStream_t)stream>>>(
+      x, mask, h0, diag1, off1, c_uk, dkt, dka, b, out, B, T, F, N, K);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -240,15 +306,18 @@ extern "C" int drnmf_scan_factored(const float* x, const unsigned char* mask,
                                    const float* dkt, const float* dka,
                                    const float* b, float* out, int B, int T,
                                    int F, int N, int K, void* stream) {
-  const size_t smem = smem_floats(F, N) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      drnmf_scan_factored_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((B + ROWS - 1) / ROWS);
-  drnmf_scan_factored_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      x, mask, h0, diag1, off1, c_uk, dkt, dka, b, out, B, T, F, N, K);
-  return (int)cudaGetLastError();
+  return launch<1>(drnmf_scan_factored_kernel, x, mask, h0, diag1, off1, c_uk,
+                   dkt, dka, b, out, B, T, F, N, K, stream);
+}
+
+// The interleaved variant: two groups of ROWS rows a block.
+extern "C" int drnmf_scan_factored_interleaved(
+    const float* x, const unsigned char* mask, const float* h0,
+    const float* diag1, const float* off1, const float* c_uk,
+    const float* dkt, const float* dka, const float* b, float* out, int B,
+    int T, int F, int N, int K, void* stream) {
+  return launch<2>(drnmf_scan_factored_interleaved_kernel, x, mask, h0, diag1,
+                   off1, c_uk, dkt, dka, b, out, B, T, F, N, K, stream);
 }
 
 extern "C" const char* drnmf_cuda_error_string(int code) {

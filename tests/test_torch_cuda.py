@@ -1,5 +1,5 @@
-"""Kernels B1, B4 and B5, the enhancer and sparse NMF on the card, against
-their plain versions and the CPU.
+"""Kernels B1 to B5, the enhancers (batch and streaming) and sparse NMF on
+the card, against their plain versions and the CPU.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports neither jax nor drnmf_tpu, so on a machine with a
@@ -10,8 +10,10 @@ card and no JAX it runs on its own:
 Tolerance rtol 1e-4 / atol 1e-5 on hidden states: f32 on both sides, the
 kernel summing the thin products in another order than cuBLAS.  B4/B5:
 rtol 1e-4 of each output's largest entry (f32 on both sides, sums over up
-to 4,099 frames in another order).  Each test walks its cases and names
-them in a failure message.
+to 4,099 frames in another order).  B3: operands drawn so that every term
+moves the output; rtol 1e-4 / atol 1e-5 as B1.  B2 against B1: bit for bit
+(the same arithmetic per row).  Each test walks its cases and names them in
+a failure message.
 """
 
 import numpy as np
@@ -22,6 +24,7 @@ from drnmf_torch.convert import init_drnmf_params
 from drnmf_torch.enhance import enhance_signals
 from drnmf_torch.models import drnmf
 from drnmf_torch.ops import drnmf_scan, snmf, snmf_mu
+from drnmf_torch.streaming import MultiStreamEnhancer, StreamingEnhancer
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -76,14 +79,19 @@ def _kernel_matches_plain_version(device):
                 args = drnmf.factored_scan_operands(
                     params, cfg, x,
                     drnmf.step_mask_from_input(x, cfg.mask_value))
-                before = drnmf_scan.LAUNCHES
+                before = dict(drnmf_scan.LAUNCHES)
                 out = drnmf_scan.drnmf_scan_factored(*args)
+                inter = drnmf_scan.drnmf_scan_factored(*args, interleave=True)
                 torch.cuda.synchronize()
-                assert drnmf_scan.LAUNCHES == before + 1, case
+                assert drnmf_scan.LAUNCHES == {
+                    **before, "factored": before["factored"] + 1,
+                    "interleaved": before["interleaved"] + 1}, case
                 ref = drnmf_scan.drnmf_scan_factored_reference(*args)
                 np.testing.assert_allclose(out.cpu().numpy(),
                                            ref.cpu().numpy(), err_msg=case,
                                            **TOL)
+                # B2 runs B1's arithmetic per row
+                assert torch.equal(inter, out), case
 
 
 def _wrapper_rejects_malformed_operands(device):
@@ -104,9 +112,11 @@ def _wrapper_rejects_malformed_operands(device):
             args[1] = args[1].float()
         else:
             args[2] = args[2].cpu()
-        before = drnmf_scan.LAUNCHES
+        before = dict(drnmf_scan.LAUNCHES)
         with pytest.raises((TypeError, ValueError)):
             drnmf_scan.drnmf_scan_factored(*args)
+        with pytest.raises((TypeError, ValueError)):
+            drnmf_scan.drnmf_scan_factored(*args, interleave=True)
         assert drnmf_scan.LAUNCHES == before, bad
 
 
@@ -118,10 +128,10 @@ def _enhance_matches_cpu(device):
             cfg, params, rng = _model(2, n_fft // 2 + 1, 8, K, device)
             sigs = [(rng.standard_normal(n) * 0.2).astype(np.float32)
                     for n in (2000, 3500, 2999)]
-            before = drnmf_scan.LAUNCHES
+            before = drnmf_scan.LAUNCHES["factored"]
             on_card = enhance_signals(params, cfg, sigs, n_fft, hop,
                                       batch_size=2)
-            assert drnmf_scan.LAUNCHES == before + 2
+            assert drnmf_scan.LAUNCHES["factored"] == before + 2
             on_cpu = enhance_signals({k: v.cpu() for k, v in params.items()},
                                      cfg, sigs, n_fft, hop, batch_size=2,
                                      device="cpu")
@@ -131,15 +141,15 @@ def _enhance_matches_cpu(device):
 
 
 def _other_configs_run_plain_loop(device):
-    """Configurations B1 does not compute run the plain time loop on the
+    """Configurations no kernel computes run the plain time loop on the
     card, launch no kernel, and agree with the CPU."""
     for overrides in (
             dict(activation="tanh"), dict(factored_S=False),
-            dict(params_trainable=("log_D", "log_alph", "log_U1", "log_Uk")),
+            dict(activation="tanh", params_trainable=("log_D", "log_U1")),
             dict(return_all_hidden=True), dict(connect_input_to_layers=False)):
         cfg, params, rng = _model(3, 17, 12, 3, device, **overrides)
         x = torch.from_numpy(rng.uniform(0, 1, (3, 9, 17)).astype(np.float32))
-        before = drnmf_scan.LAUNCHES
+        before = dict(drnmf_scan.LAUNCHES)
         on_card = drnmf.drnmf_forward(params, cfg, x.to(device),
                                       return_parts=True)
         torch.cuda.synchronize()
@@ -151,12 +161,179 @@ def _other_configs_run_plain_loop(device):
                                        err_msg=str(overrides), **TOL)
 
 
+DENSE_SHAPES = [  # (B, T, F, r)
+    (1, 1, 9, 8),
+    (3, 11, 9, 8),  # ragged everywhere: F=9, 2r=16, B=3, T=11
+    (2, 9, 24, 4),
+    (5, 7, 33, 7),  # odd 2r = 14
+    (17, 5, 65, 50),  # 32-row tile
+    (33, 4, 129, 64),  # 64-row tile, one padded row tile
+    (64, 3, 257, 100),
+    (130, 2, 257, 200),  # three row tiles, the last nearly empty
+    (2, 3, 257, 1000),  # flagship widths
+    (256, 2, 257, 1000),  # flagship widths and batch
+]
+
+
+def _dense_args(rng, bsz, t_len, f, r, K, device):
+    """Operands of B3 at a scale where every term moves the output: U and
+    S uniform in [0, 1/2r] (the state stays bounded), W unit-column / 10."""
+    n2r = 2 * r
+
+    def uniform(hi, *shape):
+        return torch.from_numpy(
+            rng.uniform(0.0, hi, shape).astype(np.float32)).to(device)
+
+    x = rng.uniform(0, 1, (bsz, t_len, f)).astype(np.float32)
+    if t_len > 1:
+        x[bsz // 2, min(6, t_len - 1):] = -1.0  # a row held from step 6
+    x = torch.from_numpy(x).to(device)
+    w = uniform(1.0, K, f, n2r) + 0.05
+    w = w / (w * w).sum(dim=1, keepdim=True).sqrt() / 10.0
+    uk = uniform(1.0 / n2r, n2r, n2r)
+    if K == 1:
+        uk = torch.zeros_like(uk)
+    return (x, drnmf.step_mask_from_input(x, -1.0),
+            uniform(0.5, bsz, n2r), uniform(1.0 / n2r, n2r, n2r), uk,
+            uniform(1.0 / n2r, max(1, K - 1), n2r, n2r), w,
+            -uniform(0.05, K, n2r))
+
+
+def _dense_kernel_matches_plain_version(device):
+    rng = np.random.default_rng(6)
+    for shape in DENSE_SHAPES:
+        for K in (1, 2, 3, 5):
+            if K == 5 and shape[3] == 1000 and shape[0] > 2:
+                continue  # 106 MB of weights: once is enough
+            case = "B%d_T%d_F%d_r%d" % shape + f" K={K}"
+            args = _dense_args(rng, *shape, K, device)
+            before = dict(drnmf_scan.LAUNCHES)
+            out = drnmf_scan.drnmf_scan_dense(*args)
+            again = drnmf_scan.drnmf_scan_dense(*args)
+            torch.cuda.synchronize()
+            assert drnmf_scan.LAUNCHES == {
+                **before, "dense": before["dense"] + 2}, case
+            assert torch.equal(out, again), case  # fixed summation order
+            ref = drnmf_scan.drnmf_scan_dense_reference(*args)
+            np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                                       err_msg=case, **TOL)
+            if K > 1:  # a dropped operand would show
+                for drop in (4, 5):
+                    cut = list(args)
+                    cut[drop] = torch.zeros_like(cut[drop])
+                    moved = drnmf_scan.drnmf_scan_dense_reference(*cut) - ref
+                    assert moved.abs().max().item() > 1e-3, (case, drop)
+
+    good = _dense_args(rng, 3, 5, 9, 8, 3, device)
+    for bad in ("dtype", "contiguity", "shape", "device"):
+        args = list(good)
+        if bad == "dtype":
+            args[3] = args[3].double()
+        elif bad == "contiguity":
+            args[3] = args[3].T
+        elif bad == "shape":
+            args[5] = args[5][:1]
+        else:
+            args[4] = args[4].cpu()
+        before = dict(drnmf_scan.LAUNCHES)
+        with pytest.raises((TypeError, ValueError)):
+            drnmf_scan.drnmf_scan_dense(*args)
+        assert drnmf_scan.LAUNCHES == before, bad
+
+
+def _dense_model_and_streaming_match_cpu(device):
+    """A dense-U model (trainable U, perturbed from the init form) and a
+    frozen-U model: ``drnmf_forward`` and ``enhance_signals`` on the card
+    launch B3 (B1) and agree with the CPU; so do ``StreamingEnhancer`` and
+    ``MultiStreamEnhancer`` under an ``active`` mask, whose inactive rows
+    keep their state bit for bit."""
+    n_fft, hop, block = 64, 16, 4
+    for dense in (True, False):
+        over = (dict(params_trainable=("log_D", "log_alph", "log_U1",
+                                       "log_Uk")) if dense else {})
+        cfg, params, rng = _model(7, n_fft // 2 + 1, 6, 3, device, **over)
+        if dense:
+            for name in ("log_U1", "log_Uk"):
+                params[name] = params[name] + torch.from_numpy(
+                    rng.uniform(0.0, 0.5, params[name].shape)
+                    .astype(np.float32)).to(device)
+        which = "dense" if dense else "factored"
+        cpu_params = {k: v.cpu() for k, v in params.items()}
+        sigs = [(rng.standard_normal(n) * 0.2).astype(np.float32)
+                for n in (900, 1500, 1201)]
+
+        before = drnmf_scan.LAUNCHES[which]
+        on_card = enhance_signals(params, cfg, sigs, n_fft, hop)
+        assert drnmf_scan.LAUNCHES[which] == before + 1, which
+        on_cpu = enhance_signals(cpu_params, cfg, sigs, n_fft, hop,
+                                 device="cpu")
+        for a, b in zip(on_card, on_cpu):
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5,
+                                       err_msg=which)
+
+        enh = StreamingEnhancer(params, cfg, n_fft, hop, block_frames=block)
+        before = drnmf_scan.LAUNCHES[which]
+        got = np.concatenate([enh.process(sigs[0][:333]),
+                              enh.process(sigs[0][333:]), enh.flush()])
+        assert drnmf_scan.LAUNCHES[which] > before, which
+        np.testing.assert_allclose(got[:len(sigs[0])], on_cpu[0], rtol=1e-4,
+                                   atol=1e-5, err_msg=which)
+
+        blk = block * hop
+        multis = [MultiStreamEnhancer(p, cfg, 3, n_fft, hop, block, device=d)
+                  for p, d in ((params, device), (cpu_params, "cpu"))]
+        outs = [[[] for _ in sigs] for _ in multis]
+        fed = [0, 0, 0]
+        for rnd in range(16):
+            active = np.array([(rnd + s) % 3 != 0
+                               and (fed[s] + 1) * blk <= len(sigs[s])
+                               for s in range(3)])
+            if not active.any():
+                continue
+            samples = np.zeros((3, blk), np.float32)
+            for s in np.nonzero(active)[0]:
+                samples[s] = sigs[s][fed[s] * blk:(fed[s] + 1) * blk]
+                fed[s] += 1
+            h_before = multis[0]._h.clone()
+            acc_before = multis[0]._acc.clone()
+            for m, o in zip(multis, outs):
+                for s, y in enumerate(m.step(samples, active)):
+                    assert (y is None) == (not active[s])
+                    if y is not None:
+                        o[s].append(y)
+            idle = torch.from_numpy(~active).to(device)
+            assert torch.equal(multis[0]._h[idle], h_before[idle])
+            assert torch.equal(multis[0]._acc[idle], acc_before[idle])
+        for m, o in zip(multis, outs):
+            for s in range(3):
+                o[s].append(m.flush_stream(s, tail=sigs[s][fed[s] * blk:]))
+        for s in range(3):
+            a, b = (np.concatenate(o[s]) for o in outs)
+            assert len(a) == len(b) >= len(sigs[s])
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5,
+                                       err_msg=f"{which} stream {s}")
+            np.testing.assert_allclose(a[:len(sigs[s])], on_cpu[s],
+                                       rtol=1e-4, atol=1e-5,
+                                       err_msg=f"{which} stream {s}")
+
+
+@pytest.mark.cuda
+def test_dense_and_streaming_on_card(cuda):
+    """B3 against its plain version over a grid of shapes (every tile
+    size, ragged edges, K = 1 with the dummy S, the flagship widths), bit
+    for bit reproducible; the wrapper's checks; a dense-U and a frozen-U
+    model through the batch and the streaming enhancers against the CPU."""
+    _dense_kernel_matches_plain_version(cuda)
+    _dense_model_and_streaming_match_cpu(cuda)
+
+
 @pytest.mark.cuda
 def test_on_card(cuda):
-    """B1 against its plain version over a grid of shapes (one row, one
-    step, odd B and 2r, K = 1 with the dummy dkT, the flagship widths and
-    batch; tied and untied alph); the wrapper's checks; the enhancer on the
-    card against the CPU; and the configurations that stay off B1."""
+    """B1 against its plain version, and B2 against B1 bit for bit, over a
+    grid of shapes (one row, one step, odd B and 2r, K = 1 with the dummy
+    dkT, the flagship widths and batch; tied and untied alph); the wrapper's
+    checks; the enhancer on the card against the CPU; and the
+    configurations that stay off every kernel."""
     _kernel_matches_plain_version(cuda)
     _wrapper_rejects_malformed_operands(cuda)
     _enhance_matches_cpu(cuda)

@@ -10,6 +10,7 @@ import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 import yaml
 
@@ -20,6 +21,7 @@ from drnmf_tpu.pipeline import drnmf_config_from_params as jax_config_from
 from drnmf_torch import config as tconfig
 from drnmf_torch.convert import init_drnmf_params, params_from_numpy
 from drnmf_torch.models import drnmf as tdrnmf
+from drnmf_torch.ops import drnmf_scan as tscan
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 F, R, T = 33, 16, 20
@@ -170,3 +172,90 @@ def test_cell_step_module_and_fold_checks_match_jax(rng):
     assert tdrnmf.ensure_fold_valid(tcfg, tparams, verbose=False) is tcfg
     tparams["log_Uk"][3, 4] += 1.0
     assert not tdrnmf.fold_structure_holds(tparams)
+
+
+@pytest.mark.parametrize("case", ["U_trainable", "U_broken_structure"])
+def test_dense_route_matches_jax_pallas_and_xla(rng, case):
+    """A dense-U model (U trains and has moved, or a checkpoint whose U
+    broke the fold) takes the dense route: ``drnmf_scan_dense`` with S
+    materialised dense.  Against the JAX model's ``use_pallas`` route in
+    interpret mode (the same function: rtol 1e-5 / atol 1e-6) and against
+    its XLA route, which keeps S factored (a reassociation: rtol 1e-4 /
+    atol 1e-5, as the JAX package holds its own two routes)."""
+    for K in (1, 2, 3):
+        overrides, break_u = CASES[case]
+        jcfg, tcfg, params = _model(rng, dict(overrides, K_layers=K), break_u)
+        if not break_u:  # U has trained away from its init form
+            for name in ("log_U1", "log_Uk"):
+                params[name] = params[name] + rng.uniform(
+                    0.0, 0.5, params[name].shape).astype(np.float32)
+        x = _input(rng)
+        tparams = params_from_numpy(params, "cpu")
+        # convert carries the full (2r, 2r) U matrices unchanged
+        for name in ("log_U1", "log_Uk"):
+            np.testing.assert_array_equal(tparams[name].numpy(), params[name])
+
+        scanned = []
+
+        def scan(*args):
+            scanned.append([tuple(a.shape) for a in args])
+            return tscan.drnmf_scan_dense_reference(*args)
+
+        out = [a.numpy() for a in tdrnmf.drnmf_forward(
+            tparams, tcfg, torch.from_numpy(x), return_parts=True,
+            scan_fn=scan)]
+        n2r = 2 * R
+        assert scanned == [[(3, T, F), (3, T), (3, n2r), (n2r, n2r),
+                            (n2r, n2r), (max(1, K - 1), n2r, n2r),
+                            (K, F, n2r), (K, n2r)]], (case, K)
+        default = tdrnmf.drnmf_forward(tparams, tcfg, torch.from_numpy(x))
+        np.testing.assert_array_equal(default.numpy(), out[0])
+
+        jpl = dataclasses.replace(jcfg, use_pallas=True,
+                                  pallas_interpret=True)
+        names = ("irm", "hidden", "clean", "noise")
+        for jc, tol in ((jpl, TOL), (jcfg, dict(rtol=1e-4, atol=1e-5))):
+            ref = [np.asarray(a) for a in jdrnmf.drnmf_forward(
+                params, jc, jnp.asarray(x), return_parts=True)]
+            for name, o, r in zip(names, out, ref):
+                np.testing.assert_allclose(
+                    o, r, err_msg=f"{case} K={K} {name} "
+                    f"pallas={jc.use_pallas}", **tol)
+
+        U, S, _, _ = tdrnmf._effective_matrices(tparams, tcfg, dense_s=True)
+        assert tdrnmf.is_dense_plain(tcfg, U, S)
+        assert not tdrnmf.is_factored_plain(tcfg, U, S)
+        args = tdrnmf.dense_scan_operands(
+            tparams, tcfg, torch.from_numpy(x),
+            tdrnmf.step_mask_from_input(torch.from_numpy(x), -1.0))
+        np.testing.assert_array_equal(
+            tscan.drnmf_scan_dense(*args).numpy(), out[1])
+    with pytest.raises(ValueError):
+        tdrnmf.dense_scan_operands(
+            tparams, dataclasses.replace(tcfg, activation="tanh"),
+            torch.from_numpy(x), torch.ones((3, T), dtype=torch.bool))
+
+
+@pytest.mark.parametrize("case", ["folded_factored_K3", "U_trainable",
+                                  "tanh", "return_all_hidden"])
+def test_carried_state_continues_the_scan(rng, case):
+    """A sequence cut in two, the second part started from the state the
+    first part ended in, gives the hidden states of the whole sequence:
+    what a stream relies on, for every route (B1's, B3's, the time loop)."""
+    _, tcfg, params = _model(rng, *CASES[case])
+    tparams = params_from_numpy(params, "cpu")
+    x = torch.from_numpy(rng.uniform(0.0, 1.0, (3, T, F)).astype(np.float32))
+    valid = torch.ones((3, T), dtype=torch.bool)
+    n2r = 2 * R
+    whole = tdrnmf._scan_hidden(tparams, tcfg, x, valid)
+    first = tdrnmf._scan_hidden(tparams, tcfg, x[:, :7], valid[:, :7])
+    second = tdrnmf._scan_hidden(tparams, tcfg, x[:, 7:], valid[:, 7:],
+                                 state=first[:, -1, -n2r:])
+    np.testing.assert_allclose(torch.cat([first, second], dim=1).numpy(),
+                               whole.numpy(), rtol=0, atol=1e-6, err_msg=case)
+    scan = tdrnmf.make_scan(tparams, tcfg)  # prepared once, called per block
+    np.testing.assert_array_equal(
+        scan(x[:, 7:], valid[:, 7:], state=first[:, -1, -n2r:]).numpy(),
+        second.numpy())
+    with pytest.raises(ValueError, match="state has shape"):
+        tdrnmf._scan_hidden(tparams, tcfg, x, valid, state=first[:2, -1])

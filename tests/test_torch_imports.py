@@ -30,11 +30,20 @@ def test_port_imports_no_jax_or_reference_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 25
+    assert n_modules >= 27
+    for name in ("drnmf_torch.streaming", "drnmf_torch.serve"):
+        probe = subprocess.run(
+            [sys.executable, "-c",
+             f"import sys, {name}; assert '{name}' in sys.modules; "
+             "assert not [m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'drnmf_tpu')]"],
+            cwd=REPO, capture_output=True, text=True, timeout=120)
+        assert probe.returncode == 0, name + probe.stdout + probe.stderr
 
 
 def _call_entry_point(name, tmp_path):
-    from drnmf_torch import enhance_wav
+    from drnmf_torch import enhance_wav, serve
+    from drnmf_torch.streaming import MultiStreamEnhancer, StreamingEnhancer
     from drnmf_torch.convert import init_drnmf_params, params_from_numpy
     from drnmf_torch.enhance import enhance_signals, make_enhancer
     from drnmf_torch.models import snmf_infer_irm
@@ -59,6 +68,12 @@ def _call_entry_point(name, tmp_path):
         train_snmf(w, w, snmf, path_dicts=str(tmp_path), verbose=False)
     elif name == "snmf_infer_irm":
         snmf_infer_irm(w, w, snmf)
+    elif name == "StreamingEnhancer":
+        StreamingEnhancer({}, cfg)
+    elif name == "MultiStreamEnhancer":
+        MultiStreamEnhancer({}, cfg, 2)
+    elif name == "serve":
+        serve.main(["-c", "c.yaml", "-m", "m.npz", "--port", "0"])
     else:
         wav = tmp_path / "x.wav"
         wav.write_bytes(b"")
@@ -72,6 +87,7 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name in ("make_enhancer", "enhance_signals", "params_from_numpy",
                  "init_drnmf_params", "enhance_wav", "sparse_nmf",
-                 "train_snmf", "snmf_infer_irm"):
+                 "train_snmf", "snmf_infer_irm", "StreamingEnhancer",
+                 "MultiStreamEnhancer", "serve"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             _call_entry_point(name, tmp_path)

@@ -1,11 +1,15 @@
-"""Kernel B1's plain version and wrapper (drnmf_torch.ops.drnmf_scan)
-against the TPU kernel it replaces, ``drnmf_scan_pallas_factored`` run in
-interpret mode, with inputs built as tests/test_pallas_kernels.py builds
-them.
+"""The plain versions and wrappers of kernels B1, B2 and B3
+(drnmf_torch.ops.drnmf_scan) against the TPU kernels they replace,
+``drnmf_scan_pallas_factored`` (plain and interleaved) and
+``drnmf_scan_pallas``, run in interpret mode, with inputs built as
+tests/test_pallas_kernels.py builds them.
 
-Tolerance rtol 1e-5 / atol 1e-6: f32 on both sides, different summation
-order in the thin products.  The CUDA kernel itself is held against the
-plain version in tests/test_torch_cuda.py, which needs a card."""
+Tolerance rtol 1e-5 / atol 1e-6 (B1, B3) and rtol 1e-6 / atol 1e-6 (B2, as
+the JAX test of the interleaved kernel): f32 on both sides, different
+summation order in the products.  B3's plain version against the JAX
+model's XLA scan: rtol 1e-4 / atol 1e-5, as the JAX test holds its Pallas
+kernel.  The CUDA kernels themselves are held against the plain versions in
+tests/test_torch_cuda.py, which needs a card."""
 
 import jax
 import jax.numpy as jnp
@@ -14,8 +18,9 @@ import pytest
 import torch
 
 from drnmf_tpu.models import DRNMFConfig, init_drnmf_params
-from drnmf_tpu.models.drnmf import _effective_matrices, step_mask_from_input
-from drnmf_tpu.ops.pallas import drnmf_scan_pallas_factored
+from drnmf_tpu.models.drnmf import (_effective_matrices, _scan_hidden,
+                                    step_mask_from_input)
+from drnmf_tpu.ops.pallas import drnmf_scan_pallas, drnmf_scan_pallas_factored
 from drnmf_torch.ops import drnmf_scan as tscan
 
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -70,7 +75,7 @@ def test_reference_matches_pallas_factored(rng):
 
 def test_wrapper_on_cpu_runs_plain_version_and_rejects_malformed(rng):
     good = _to_torch(_operands(rng, 3, 11, 9, 8, 3))
-    before = tscan.LAUNCHES
+    before = dict(tscan.LAUNCHES)
     out = tscan.drnmf_scan_factored(*good)
     assert tscan.LAUNCHES == before
     np.testing.assert_array_equal(
@@ -95,3 +100,110 @@ def test_wrapper_on_cpu_runs_plain_version_and_rejects_malformed(rng):
             args[2] = args[2][:-1]
         with pytest.raises((TypeError, ValueError)):
             tscan.drnmf_scan_factored(*args)
+
+
+@pytest.mark.parametrize("bsz", [4, 5])
+def test_interleaved_matches_pallas_interleaved(rng, bsz):
+    """``interleave=True`` on the CPU computes the function of the JAX
+    interleaved entry; at an odd B that entry takes its plain kernel."""
+    for K in (1, 3):
+        args = _operands(rng, bsz, 9, 9, 8, K)
+        ref = np.asarray(drnmf_scan_pallas_factored(*args, interpret=True,
+                                                    interleave=True))
+        before = dict(tscan.LAUNCHES)
+        out = tscan.drnmf_scan_factored(*_to_torch(args), interleave=True)
+        assert tscan.LAUNCHES == before
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-6,
+                                   err_msg=f"B={bsz} K={K}")
+
+
+def _dense_operands(rng, bsz, t_len, f, r, K, init_form=False):
+    """Operands of the dense recurrence.  U, S and W are drawn at a scale
+    where every term moves the output (uniform in [0, 1/2r] keeps the state
+    bounded); ``init_form`` takes them from an initialised model instead,
+    as the JAX tests do.  Also returns that model for the XLA scan."""
+    n2r = 2 * r
+    w = rng.uniform(0.05, 1.0, (f, n2r)).astype(np.float32)
+    w /= np.sqrt(np.sum(w**2, axis=0))
+    cfg = DRNMFConfig(input_dim=f, r=r, output_dim=f, K_layers=K,
+                      alph=10.0, lam1=0.3, params_untied=("log_D",),
+                      params_trainable=("log_D", "log_U1", "log_Uk"),
+                      matmul_precision="highest")
+    params = init_drnmf_params(cfg, w)
+    if not init_form:
+        params = dict(params)
+        for name in ("log_U1", "log_Uk"):
+            params[name] = jnp.log(jnp.asarray(
+                rng.uniform(1e-3, 1.0 / n2r, (n2r, n2r)).astype(np.float32)))
+    x = rng.uniform(0.0, 2.0, (bsz, t_len, f)).astype(np.float32)
+    x[0, 6:] = cfg.mask_value  # masked tail
+    x = jnp.asarray(x)
+    sm = step_mask_from_input(x, cfg.mask_value)
+    U, S, W, b = _effective_matrices(params, cfg)
+    h0 = jnp.broadcast_to(jax.nn.softplus(params["log_h0"])[None, :],
+                          (bsz, n2r))
+    s_stack = jnp.stack(S) if S else jnp.zeros((1, n2r, n2r), jnp.float32)
+    uk = U[1] if K > 1 else jnp.zeros_like(U[0])
+    args = (x, sm, h0, U[0], uk, s_stack, jnp.stack(W), jnp.stack(b))
+    return args, cfg, params
+
+
+@pytest.mark.parametrize("K", [1, 2, 3])
+def test_dense_reference_matches_pallas_dense_and_xla(rng, K):
+    for shape, init_form in (((2, 9, 24, 4), False), ((3, 11, 9, 8), False),
+                             ((2, 11, 16, 4), True)):
+        case = "B%d_T%d_F%d_r%d" % shape + f" K={K} init={init_form}"
+        args, cfg, params = _dense_operands(rng, *shape, K,
+                                            init_form=init_form)
+        targs = _to_torch(args)
+        before = dict(tscan.LAUNCHES)
+        out = tscan.drnmf_scan_dense(*targs)  # on the CPU: the plain version
+        assert tscan.LAUNCHES == before
+        np.testing.assert_array_equal(
+            out.numpy(), tscan.drnmf_scan_dense_reference(*targs).numpy())
+        for block_t in (1, 4):
+            ref = np.asarray(drnmf_scan_pallas(*args, interpret=True,
+                                               block_t=block_t))
+            assert out.shape == ref.shape, case
+            np.testing.assert_allclose(out.numpy(), ref, err_msg=case, **TOL)
+        xla = np.asarray(_scan_hidden(params, cfg, args[0], args[1]))
+        np.testing.assert_allclose(out.numpy(), xla, rtol=1e-4, atol=1e-5,
+                                   err_msg=case)
+        if not init_form and K > 1:
+            # every operand shows: without uk (or S) the output moves
+            for drop in (4, 5):
+                cut = list(targs)
+                cut[drop] = torch.zeros_like(cut[drop])
+                moved = (tscan.drnmf_scan_dense_reference(*cut) - out).abs()
+                assert moved.max() > 1e-3, (case, drop)
+
+
+def test_dense_wrapper_rejects_malformed_and_picks_tiles(rng):
+    good = _to_torch(_dense_operands(rng, 3, 5, 9, 8, 3)[0])
+    for bad in ("dtype", "contiguity", "s_shape", "mask_dtype", "x_rank",
+                "uk_shape"):
+        args = list(good)
+        if bad == "dtype":
+            args[3] = args[3].double()
+        elif bad == "contiguity":
+            args[3] = args[3].T
+        elif bad == "s_shape":
+            args[5] = args[5][:1]
+        elif bad == "mask_dtype":
+            args[1] = args[1].float()
+        elif bad == "x_rank":
+            args[0] = args[0][0]
+        else:
+            args[4] = args[4][:-1]
+        with pytest.raises((TypeError, ValueError)):
+            tscan.drnmf_scan_dense(*args)
+
+    # the tile rule: rows cover the batch up to 64; a small batch takes
+    # narrow column tiles so that the weight reads spread over the card
+    assert tscan.dense_scan_tiles(256, 2000, 132) == (64, 64)
+    assert tscan.dense_scan_tiles(64, 2000, 132) == (64, 16)
+    assert tscan.dense_scan_tiles(1, 2000, 132) == (16, 16)
+    assert tscan.dense_scan_tiles(3, 16, 132) == (16, 16)
+    for bsz in (1, 17, 33, 100, 1000):
+        tm, tn = tscan.dense_scan_tiles(bsz, 2000, 132)
+        assert tm in tscan.DENSE_TILES and tn in tscan.DENSE_TILES
