@@ -24,7 +24,9 @@ Phases, each printing one JSON line:
               at a batch of 256, of 64 and of 1.
    snmf_kernel -- B4 and B5 against their plain versions (and one whole MU
               iteration with half of W frozen) at the JAX hold-out shape, at
-              odd shapes that cut every tile and at m=257, 2r=2000, n=4,099.
+              shapes that cut every tile (n below one tile, n = 1, 2, 3 mod 4,
+              m = 8, 257 and 264 = 3 x 88, r not a multiple of 8, sparsity
+              0) and at m=257, 2r=2000, n=4,099.
 4. main    -- the flagship model (K=5, 2r=2000, F=257; random dictionary from
               seed 7654) through ``python -m drnmf_torch.enhance_wav`` on a
               few synthetic wavs, then ``enhance_signals`` on 256 signals of
@@ -65,8 +67,12 @@ Phases, each printing one JSON line:
 11. snmf_parity -- ``sparse_nmf_ed`` with B4/B5 against the same solver on
               the plain passes, 10 iterations at 257 x 16,080 x 2000.
 12. snmf_times -- B4, B5, their plain versions and the bare cuBLAS products
-              at bench.py's SNMF shape (257 x 140,000, 2r=2000), and the
-              end-to-end ``sparse_nmf`` iteration rate there.
+              at bench.py's SNMF shape (257 x 140,000, 2r=2000): ms, useful
+              TFLOP/s, the bound (one TF32 tensor-core pass or the bytes)
+              beside what three TF32 passes and the f32 CUDA cores could
+              reach, a bit-equal repeat of both, their times at the recipe's
+              unpadded 139,695 frames, one iteration split by kernel, and the
+              end-to-end ``sparse_nmf`` iteration rate.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after.
@@ -90,8 +96,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, HBM3 bandwidth
+# H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, dense TF32 on
+# the tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 FS = 16000
 N_FFT, HOP = 512, 128
@@ -99,9 +107,11 @@ N_FFT, HOP = 512, 128
 # summation order (thin products of 257 and 2000 terms, 2K-1 of them per
 # step, through the recurrence), so about 1e-6 relative is expected
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
-# B4/B5 against their plain versions: f32 on both sides, sums of up to
-# 140,000 terms in another order; error relative to each output's largest
-# entry
+# B4/B5 against their plain versions: f32 on one side, three TF32 products
+# a term on the other (the dropped tail product is 2^-22 of a term; the
+# tensor cores sum short chains only, which are added in f32 on the CUDA
+# cores), sums of up to 140,000 terms in another order: a few 1e-6 is
+# expected; error relative to each output's largest entry
 SNMF_RTOL = 1e-4
 # the dictionary stage: 139 x 8 s of frames (139,695), r=1000 a source
 SNMF_SIGNALS, SNMF_R, SNMF_ITERS = 139, 1000, 10
@@ -322,18 +332,28 @@ def close_to(got, want):
 
 
 def snmf_bounds(m, r, n):
-    """{pass: (bound ms, 'bytes' or 'operations')} of one B4 and one B5
-    call on these shapes: 6 (B4) or 1 (B5) products of 2*m*r*n flops over
-    the f32 CUDA-core peak, against each input read once and each output
-    written once over the HBM rate."""
+    """{pass: bounds} of one B4 and one B5 call on these shapes.  The work
+    is 6 (B4) or 1 (B5) products of 2*m*r*n flops, and each input read once
+    and each output written once at the HBM rate.  ``bound_ms``/``bound_by``:
+    the least time the card could take, the larger of one dense TF32
+    tensor-core pass and the bytes; ``bound_3xtf32_ms``: the same with the
+    three TF32 passes a term that the kernels' f32-class accuracy costs;
+    ``bound_f32_cuda_cores_ms``: with the f32 rate of the CUDA cores, the
+    bound the kernels had before they ran on the tensor cores."""
     inputs = 4 * (m * n + r * n + m * r)  # v, h, w
     out = {}
     for name, products, outputs in (("pass1", 6, 4 * (r * n + 2 * m * r + 1)),
                                     ("pass2", 1, 4)):
-        t_ops = products * 2 * m * r * n / PEAK_F32_FLOPS
+        flops = products * 2 * m * r * n
         t_bytes = (inputs + outputs) / PEAK_BYTES_PER_S
-        out[name] = (1e3 * max(t_ops, t_bytes),
-                     "operations" if t_ops >= t_bytes else "bytes")
+        t_ops = flops / PEAK_TF32_FLOPS
+        out[name] = {
+            "flops": flops,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_3xtf32_ms": 1e3 * max(3 * t_ops, t_bytes),
+            "bound_f32_cuda_cores_ms": 1e3 * max(flops / PEAK_F32_FLOPS,
+                                                 t_bytes)}
     return out
 
 
@@ -372,13 +392,17 @@ def snmf_errors(v, h, w, sparsity):
 
 
 def snmf_kernel_phase():
-    """B4/B5 against their plain versions at shapes that cut every tile,
-    and one whole MU iteration with half of W frozen."""
+    """B4/B5 against their plain versions at shapes that cut every tile (n
+    below one 128-row tile; n = 0, 1, 2, 3 mod 4, which moves the rows'
+    alignment; m = 8, 257, 264 against the 88-column tiles; r = 2000 and r
+    not a multiple of 8; sparsity 0), and one whole MU iteration with half
+    of W frozen."""
     import torch
     from drnmf_torch.ops import snmf_mu
 
     rng = np.random.default_rng(11)
     for m, r, n, sparsity in ((17, 6, 40, 0.7), (65, 63, 129, 0.0),
+                              (8, 8, 130, 0.3), (264, 50, 1030, 0.0),
                               (257, 100, 4099, 1.0), (257, 2000, 4099, 1.0)):
         case = f"m{m}_r{r}_n{n}_sp{sparsity}"
         v, h, w = snmf_operands(rng, m, r, n)
@@ -574,6 +598,14 @@ def snmf_phases(card, config):
     errs = snmf_errors(v, h, w, 1.0)
     check(all(rel <= SNMF_RTOL for _, rel in errs.values()),
           f"B4/B5 disagree with their plain versions at {m}x{n}x{r2}")
+    # no float atomics, every sum in a fixed order: a repeat is bit-equal
+    first = (*snmf_mu.snmf_mu_pass1(v, h, w, 1.0),
+             snmf_mu.snmf_mu_pass2(v, h, w))
+    again = (*snmf_mu.snmf_mu_pass1(v, h, w, 1.0),
+             snmf_mu.snmf_mu_pass2(v, h, w))
+    repeat_equal = all(torch.equal(a, b) for a, b in zip(first, again))
+    check(repeat_equal, f"a repeat of B4/B5 at {m}x{n}x{r2} is not bit-equal")
+    del first, again
     ms = {"pass1": cuda_ms(lambda: snmf_mu.snmf_mu_pass1(v, h, w, 1.0), 5),
           "pass2": cuda_ms(lambda: snmf_mu.snmf_mu_pass2(v, h, w), 5)}
     plain_ms = {
@@ -581,6 +613,16 @@ def snmf_phases(card, config):
                          5),
         "pass2": cuda_ms(lambda: snmf_mu.snmf_mu_pass2_reference(v, h, w),
                          5)}
+    # the recipe's frame count handed straight to the kernels: rows of h
+    # that do not start on 16 bytes take the narrow copies (the solver pads
+    # its frames to a multiple of four for that reason)
+    n_odd = SNMF_SIGNALS * 1005
+    v_odd, h_odd = v[:, :n_odd].contiguous(), h[:, :n_odd].contiguous()
+    unpadded_ms = {
+        "pass1": cuda_ms(lambda: snmf_mu.snmf_mu_pass1(v_odd, h_odd, w, 1.0),
+                         3),
+        "pass2": cuda_ms(lambda: snmf_mu.snmf_mu_pass2(v_odd, h_odd, w), 3)}
+    del v_odd, h_odd
     lam = (w @ h).clamp_min(1e-9)
     cublas_ms = {
         "pass1": cuda_ms(lambda: (w @ h, w.T @ v, w.T @ lam, w @ h,
@@ -603,10 +645,20 @@ def snmf_phases(card, config):
     snmf.sparse_nmf(v, nmf_params, device_output=True)
     torch.cuda.synchronize()
     per_iter = (time.perf_counter() - t0) / n_iter
+    # no share of a peak may read over 100%
+    check(all(ms[k] >= bounds[k]["bound_ms"] for k in ms),
+          f"a kernel is faster than its bound: {ms} against {bounds}")
     log("snmf_times", card=card, shape=[m, r2, n], ms=ms, plain_ms=plain_ms,
         cublas_products_ms=cublas_ms,
-        bound_ms={k: b[0] for k, b in bounds.items()},
-        bound_by={k: b[1] for k, b in bounds.items()},
+        useful_tflops={k: bounds[k]["flops"] / ms[k] / 1e9 for k in ms},
+        **{key: {k: b[key] for k, b in bounds.items()}
+           for key in ("bound_ms", "bound_by", "bound_3xtf32_ms",
+                       "bound_f32_cuda_cores_ms")},
+        share_of_bound={k: bounds[k]["bound_ms"] / ms[k] for k in ms},
+        share_of_3xtf32_bound={k: bounds[k]["bound_3xtf32_ms"] / ms[k]
+                               for k in ms},
+        repeat_bit_equal=repeat_equal,
+        ms_unpadded_frames={"frames": n_odd, **unpadded_ms},
         max_abs_err={k: e[0] for k, e in errs.items()},
         max_rel_err={k: e[1] for k, e in errs.items()},
         snmf_iters_per_s=1.0 / per_iter,
@@ -627,9 +679,14 @@ def snmf_phases(card, config):
             "max_abs_err": max(errs[o][0] for o in outputs),
             "ms": ms[name],
             "plain_ms": plain_ms[name],
-            "bound_ms": bounds[name][0],
-            "bound_by": bounds[name][1],
-            "library_ms": None,
+            "bound_ms": bounds[name]["bound_ms"],
+            "bound_by": bounds[name]["bound_by"],
+            "bound_3xtf32_ms": bounds[name]["bound_3xtf32_ms"],
+            "bound_f32_cuda_cores_ms":
+                bounds[name]["bound_f32_cuda_cores_ms"],
+            # B5 is one product and an elementwise sum; no single call
+            # computes B4
+            "library_ms": cublas_ms[name] if name == "pass2" else None,
         })
     return rows
 

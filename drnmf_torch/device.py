@@ -9,8 +9,13 @@ def resolve_device(device="cuda") -> torch.device:
 
     Raises when CUDA was asked for (the default) and is absent, instead of
     running on the CPU quietly.  On CUDA, turns TF32 off for matmuls and
-    cuDNN: the reference runs in full float32, and TF32 keeps only about
-    three decimal digits, which would break parity with it."""
+    cuDNN: the tests hold the port against the reference at
+    ``matmul_precision='highest'`` (full float32), and a single TF32
+    product keeps only about three decimal digits, which would break that
+    parity.  (The reference's own default is looser in places: its TPU MU
+    kernels take bf16 product inputs unless told otherwise.  The port's MU
+    kernels use TF32 only in the error-compensated three-product form,
+    which keeps f32-class accuracy.)"""
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():

@@ -12,145 +12,245 @@
 //   B5:  div  = sum((v - max(W h, flr))^2)   (called with W', h')
 //
 // What bounds them on an H100.  B4 is six products of 2*m*r*n flops each
-// (863.5 GFLOP at m=257, r=2000, n=140,000: 12.9 ms at the 67 TFLOP/s f32
-// rate of the CUDA cores) against about 2.4 GB of compulsory traffic (v, h
-// read, h' written: 0.7 ms at 3.35 TB/s); B5 is one such product (2.15 ms)
-// against 1.26 GB.  Both are bound by operations.
+// (863.5 GFLOP at m=257, r=2000, n=140,000), B5 one, against 2.4 GB and
+// 1.26 GB of compulsory traffic (0.7 and 0.38 ms at 3.35 TB/s).  On the
+// tensor cores one TF32 pass at 495 TFLOP/s is 1.74 ms for B4 (operations
+// bound it) and 0.29 ms for B5 (its bytes bound it).  This design keeps
+// f32-class accuracy with three TF32 passes a term, so its own arithmetic
+// can reach 5.2 and 0.87 ms; the f32 CUDA cores (67 TFLOP/s) could reach
+// 12.9 and 2.15 ms.
 //
-// What this design does about it: it is the simple, right version.  The TPU
-// kernel keeps W (2 MB at r=2000) and the two (m, r) statistics in VMEM
-// across a sequential frame grid; on Hopper W does not fit a block's shared
-// memory and blocks run in no order.  So one tiled f32 product kernel
-// (64 x 64 output tile per block, 16-deep k steps double-buffered through
-// registers and shared memory, a 4 x 4 register tile per thread) serves
-// every product, with one epilogue per use:
+// The design: one product mainloop on the tensor cores, an epilogue per use.
 //
-//   1. lam  = max(W h, flr) into an (m, n) scratch      (EPI_LAM)
-//   2. W^T v and W^T lam in two accumulators of one block; the epilogue
-//      writes h' and a per-block partial of sum(h')    (EPI_HUPD)
-//   3. lam' = max(W h', flr) into the same scratch      (EPI_LAM)
-//   4. v h'^T and lam' h'^T in two accumulators; the frame axis is split
-//      into slices with one partial (m, r) pair each    (EPI_STATS)
-//   5. the slices and the per-block partials summed in fixed order.
-//   B5: W' h' with an epilogue that squares v - max(., flr) and writes one
-//       partial per block (EPI_DIV), then the fixed-order sum.
+// * Error-compensated TF32 ("3xTF32").  Every operand x is split into
+//   hi = tf32(x) (round to nearest) and lo = x - hi (exact in f32), and a
+//   term is a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, accumulated in f32 in that
+//   order.  The dropped a_lo*b_lo is 2^-22 of the term.  The split alone
+//   is not enough: the tensor cores add into their accumulator rounding
+//   toward zero, which biased a sum over 2000 positive terms by 2e-5 to
+//   3e-5 of itself.  So the tensor cores sum chains of 8 stages (16
+//   instructions' depth) only, and the chains are added on the CUDA cores,
+//   round to nearest, into sums kept in shared memory (the registers hold
+//   one accumulator, not two).  Measured against the f32 plain version at
+//   257 x 140,000 x 2000 the outputs then differ by 1e-6 to 3e-6 of their
+//   largest entry, as the f32 CUDA-core tiles did.  The H update contracts
+//   over m = 257 only and needs no promotion.  One precision, no knob.
+// * wgmma.mma_async m64nNk8 .tf32, D (64 x N) += A (64 x 8) B (8 x N), with
+//   A from registers and B from shared memory (64-byte swizzle; without
+//   the swizzle both kernels were 8% slower on an H100).  For TF32 both
+//   shared-memory operands must be K-major; v (m, n) and h (r, n) are
+//   n-contiguous and W (m, r) r-contiguous.  So the frames n ride the instruction's M axis
+//   and m rides its N axis: lam^T (n x m) = h^T W^T.  A is read from a
+//   shared-memory tile into registers element by element, which transposes
+//   for free and splits hi/lo in registers.  B is W as stored.  N = 3 x 88
+//   covers m = 257 with 2.7% padding (a 64-row tile on m wasted 24.5%).
+//   The H update h'^T (n x r) = [v^T W, lam^T W] takes B from a transposed
+//   copy of W that the wrapper makes once a call; the statistics
+//   A^T (r x m) = h' v^T, B^T = h' lam'^T contract over n, where h', v and
+//   lam' are all K-major as stored.
+// * A block is two warpgroups, each 64 rows of a 128 x 88 output tile
+//   (128 x 64 with two accumulators for the H update, which needs numer
+//   and denom in one thread), and two blocks share an SM: each fills the
+//   tensor cores while the other waits at its barrier.  (One block of four
+//   warpgroups on a 128 x 272 tile was 20% slower: its warpgroups meet at
+//   one barrier a stage and leave the tensor cores idle together.)  Tiles
+//   that share their A rows are neighbours in the grid, so the large
+//   operand comes from device memory once.
+// * A ring of 3 stages of BK = 16 (4 for the H update, which keeps no sums
+//   in shared memory) in dynamic shared memory, filled with cp.async.
+//   TMA is not used: the rows of v, h and h' are not 16-byte aligned at
+//   the recipe's n = 139,695.  B always takes 16-byte
+//   copies: W, W^T and v come padded by the wrapper to rows of a multiple
+//   of four floats, and lam is the kernel's own scratch with padded rows.
+//   A takes 16-byte copies where its leading dimension is a multiple of
+//   four, else 4-byte copies, which are slower (by a quarter at these
+//   shapes); the solver therefore iterates on whole groups of four frames.
+//   Copies out of range are zero-filled, so any m, r, n works and nothing
+//   is read out of bounds.  Each thread splits the B elements it copied
+//   itself into the hi and lo tiles once they have landed, before the
+//   block's barrier; the tensor cores of the previous stage run meanwhile.
+// * Epilogues on the accumulators: max(., flr) for lam; the H update in the
+//   reference's order with a per-block partial of sum(h'); the squared
+//   difference with a per-block partial for B5; per-slice (m, r) partials
+//   of the statistics, transposed back to (m, r) as they are stored.
 //
 // No float atomics: every sum across blocks is per-block partials plus a
 // pass in fixed order, so a run is reproducible bit for bit and the
-// conv_eps stop does not move between runs.  The ragged edges (any m, r, n)
-// are masked in every load and store; no padding, so no divergence bias.
-// Offsets are 64-bit.  f32 FMA on the CUDA cores; no tensor cores.
+// conv_eps stop does not move between runs.  Offsets are 64-bit.
 //
 // Plain C interface (loaded with ctypes); launches on the caller's stream,
 // allocates nothing (the caller passes a workspace of the size that
-// snmf_mu_pass{1,2}_workspace returns) and returns the first CUDA error.
+// snmf_mu_pass{1,2}_workspace returns, and the padded copies of W and W^T)
+// and returns the first CUDA error.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr float FLR = 1e-9f;
-constexpr int BM = 64;         // output rows per block
-constexpr int BN = 64;         // output columns per block
-constexpr int BK = 16;         // contraction depth per step
-constexpr int PAD = 4;         // shared-memory row padding (keeps float4)
-constexpr int THREADS = 256;   // 16 x 16 threads, 4 x 4 outputs each
-constexpr int TM = 4;
-constexpr int TN = 4;
-constexpr int LOADS = BM * BK / THREADS;  // tile elements per thread: 4
+constexpr int BM = 128;        // rows on the instruction's M axis per block
+constexpr int BK = 16;         // contraction depth per stage: two k8 steps
+constexpr int THREADS = 256;   // two warpgroups, 64 rows each
+constexpr int A_MN_LD = BM + 8;  // A tile stored [k][row]: conflict-free
+constexpr int A_K_LD = BK + 4;   // A tile stored [row][k]: conflict-free
 constexpr int SUM_THREADS = 1024;
 // frame slices for the (m, r) statistics: enough blocks to fill the card
 constexpr int MAX_SLICES = 32;
 constexpr long long FRAMES_PER_SLICE = 4096;
 
-static_assert(BM == BN, "the loaders assume square tiles");
-static_assert(BM * BK == LOADS * THREADS, "each thread loads LOADS elements");
-
 enum Epi { EPI_LAM, EPI_HUPD, EPI_STATS, EPI_DIV };
 
-// C (M x N) = A (M x K) B (K x N) over k in [z*kchunk, (z+1)*kchunk), with
-// A and B given by pointer, leading dimension and, as template flags,
-// whether they are stored transposed.  a1/b1 are the second operands of
-// the two-accumulator epilogues (EPI_STATS: a1 = lam'; EPI_HUPD: b1 = lam).
+// D^T: out[col * ldc + row] for row on the M axis, col on the N axis, from
+//   sum over k in [z*kchunk, (z+1)*kchunk) of A(row, k) B(col, k).
+// A(row, k) is a[k * lda + row], or a[row * lda + k] when A_KMAJOR.
+// B(col, k) is b[col * ldb + k].  EPI_HUPD has two A operands (v, lam) and
+// two accumulators; EPI_STATS picks b[0] or b[1] and out[0] or out[1] by
+// the block's N tile.
 struct Args {
-  const float* a0;
-  const float* a1;
+  const float* a[2];
   long long lda;
-  const float* b0;
-  const float* b1;
+  const float* b[2];
   long long ldb;
   int M;
   int N;
-  long long K;
+  long long Ma;      // readable rows of A (>= M; finite beyond M)
+  long long K;       // contraction length of A (zero-filled beyond)
+  long long Kb;      // readable length of B's rows (>= K; beyond K zero,
+                     // or finite where A is zero-filled)
   long long kchunk;
-  float* out0;      // EPI_LAM: lam; EPI_HUPD: h'; EPI_STATS: A slices
-  float* out1;      // EPI_STATS: B slices
+  float* out[2];
   long long ldc;
-  const float* e;   // EPI_HUPD: h; EPI_DIV: v (leading dimension ldc)
-  float sp;         // EPI_HUPD: the scalar sparsity
-  float* partial;   // EPI_HUPD, EPI_DIV: one float per block
+  const float* e;    // EPI_HUPD: h; EPI_DIV: v (indexed like out)
+  float sp;          // EPI_HUPD: the scalar sparsity
+  float* partial;    // EPI_HUPD, EPI_DIV: one float per block
+  int ntn;           // N tiles per B operand
 };
 
-// A tile (rows row0.., depth k0..) into registers; TRANS: stored K x M.
-template <bool TRANS>
-__device__ __forceinline__ void load_a(const float* __restrict__ a,
-                                       long long ld, int M, long long kend,
-                                       int row0, long long k0,
-                                       float (&reg)[LOADS]) {
-#pragma unroll
-  for (int q = 0; q < LOADS; ++q) {
-    const int e = threadIdx.x + q * THREADS;
-    const int mi = TRANS ? e % BM : e / BK;  // consecutive threads on the
-    const int ki = TRANS ? e / BM : e % BK;  // contiguous axis
-    const int i = row0 + mi;
-    const long long k = k0 + ki;
-    reg[q] = (i < M && k < kend)
-                 ? (TRANS ? a[k * ld + i] : a[(long long)i * ld + k])
-                 : 0.f;
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <bool TRANS>
-__device__ __forceinline__ void store_a(float (*s)[BM + PAD],
-                                        const float (&reg)[LOADS]) {
-#pragma unroll
-  for (int q = 0; q < LOADS; ++q) {
-    const int e = threadIdx.x + q * THREADS;
-    const int mi = TRANS ? e % BM : e / BK;
-    const int ki = TRANS ? e / BM : e % BK;
-    s[ki][mi] = reg[q];
-  }
+// Asynchronous global -> shared copies; an invalid one fills with zeros.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          bool valid) {
+  const int bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
 }
 
-// B tile (depth k0.., columns col0..) into registers; TRANS: stored N x K.
-template <bool TRANS>
-__device__ __forceinline__ void load_b(const float* __restrict__ b,
-                                       long long ld, int N, long long kend,
-                                       int col0, long long k0,
-                                       float (&reg)[LOADS]) {
-#pragma unroll
-  for (int q = 0; q < LOADS; ++q) {
-    const int e = threadIdx.x + q * THREADS;
-    const int ni = TRANS ? e / BK : e % BN;
-    const int ki = TRANS ? e % BK : e / BN;
-    const int j = col0 + ni;
-    const long long k = k0 + ki;
-    reg[q] = (j < N && k < kend)
-                 ? (TRANS ? b[(long long)j * ld + k] : b[k * ld + j])
-                 : 0.f;
-  }
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
+                                           bool valid) {
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
 }
 
-template <bool TRANS>
-__device__ __forceinline__ void store_b(float (*s)[BN + PAD],
-                                        const float (&reg)[LOADS]) {
-#pragma unroll
-  for (int q = 0; q < LOADS; ++q) {
-    const int e = threadIdx.x + q * THREADS;
-    const int ni = TRANS ? e / BK : e % BN;
-    const int ki = TRANS ? e % BK : e / BN;
-    s[ki][ni] = reg[q];
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x rounded to TF32 (10 mantissa bits, to nearest), as f32 bits.
+__device__ __forceinline__ uint32_t tf32_hi(float x) {
+  uint32_t u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(u) : "f"(x));
+  return u;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps a register operand of an asynchronous wgmma alive and unmoved up
+// to this point (after the wait).
+__device__ __forceinline__ void pin(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+__device__ __forceinline__ void pin(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// d (64 x N, f32) += a (64 x 8, TF32, registers) b (8 x N, TF32, shared
+// memory through its descriptor), asynchronously.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[44], const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %49, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n88k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43}, "
+      "{%44, %45, %46, %47}, %48, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(1));
+}
+
+// Shared-memory descriptor of a K-major B operand in the 64-byte swizzle
+// layout: a row of BK = 16 floats (64 bytes) a column, 512 bytes from one
+// group of 8 columns to the next, and the four 16-byte groups of a row
+// exchanged by bits 1-2 of the column (the hardware applies the same
+// exchange to the address, so tiles start on 512 bytes).  The leading
+// offset is not used by a swizzled K-major operand.
+__device__ __forceinline__ uint64_t b_descriptor(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
 }
 
 // Sum of one float per thread in a fixed order; the result is on thread 0.
@@ -164,122 +264,274 @@ __device__ float block_sum(float x, float* red) {
   return s;
 }
 
-template <bool AT, bool BT, int EPI>
-__global__ void __launch_bounds__(THREADS) mu_gemm(Args p) {
-  constexpr int NA = EPI == EPI_STATS ? 2 : 1;  // A operands
-  constexpr int NB = EPI == EPI_HUPD ? 2 : 1;   // B operands
-  constexpr int NACC = NA > NB ? NA : NB;
-  __shared__ __align__(16) float sa[2][NA][BK][BM + PAD];
-  __shared__ __align__(16) float sb[2][NB][BK][BN + PAD];
+// Shapes of one instantiation: NI the instruction's N (a warpgroup's
+// columns), NA the number of A operands (and accumulators), AVEC the floats
+// per copy of A (B always takes 16-byte copies).
+template <int NI, int NA, bool A_KMAJOR, int AVEC, int PROMOTE>
+struct Tile {
+  static constexpr int BN = NI;
+  // the promoted sums take shared memory, so a stage less fits
+  static constexpr int STAGES = PROMOTE ? 3 : 4;
+  static constexpr int PROMOTED_BYTES = PROMOTE ? NI / 2 * THREADS * 4 : 0;
+  static constexpr int A_FLOATS = A_KMAJOR ? BM * A_K_LD : BK * A_MN_LD;
+  static constexpr int B_BYTES = BN * BK * 4;
+  static constexpr int STAGE_BYTES = NA * A_FLOATS * 4 + 2 * B_BYTES;
+  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + PROMOTED_BYTES;
+  static_assert(!PROMOTE || NA == 1, "one promoted accumulator");
+  static constexpr int B_COPIES = BN * BK / 4;  // 16 bytes each
+  static constexpr int B_PER_THREAD = (B_COPIES + THREADS - 1) / THREADS;
+  static constexpr int A_PER_THREAD = BM * BK / AVEC / THREADS;
+  static_assert(NI % 8 == 0 && BM * BK % (AVEC * THREADS) == 0, "tile shapes");
+  static_assert(BK == 16, "a row of B is one 64-byte swizzle span");
+  static_assert(A_FLOATS * 4 % 512 == 0 && B_BYTES % 512 == 0, "alignment");
+
+  // byte offset of B(col, k) inside a B tile
+  __device__ static __forceinline__ int b_offset(int col, int k) {
+    return col * 64 + (((k / 4) ^ ((col >> 1) & 3)) * 16) + (k % 4) * 4;
+  }
+  // (col, k) of this thread's q-th copy of B
+  __device__ static __forceinline__ void b_copy_index(int q, int* col,
+                                                      int* k) {
+    const int e = threadIdx.x + q * THREADS;
+    *col = e / (BK / 4);
+    *k = (e % (BK / 4)) * 4;
+  }
+};
+
+template <int NI, int NA, bool A_KMAJOR, int AVEC, int PROMOTE, int EPI>
+__global__ void __launch_bounds__(THREADS, 2) mu_gemm(Args p) {
+  using T = Tile<NI, NA, A_KMAJOR, AVEC, PROMOTE>;
+  constexpr int STAGES = T::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem[];
   __shared__ float red[THREADS / 32];
 
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
+  const int tid = threadIdx.x;
+  const int nt_all = p.ntn * (EPI == EPI_STATS ? 2 : 1);
+  const int tn_all = blockIdx.x % nt_all;
+  const int bsel = tn_all / p.ntn;
+  const int row0 = (blockIdx.x / nt_all) * BM;
+  const int col0 = (tn_all % p.ntn) * T::BN;
   const long long kbeg = (long long)blockIdx.z * p.kchunk;
   const long long kend = min(p.K, kbeg + p.kchunk);
-  const int tx = threadIdx.x % (BN / TN);
-  const int ty = threadIdx.x / (BN / TN);
-  const float* as[2] = {p.a0, p.a1};
-  const float* bs[2] = {p.b0, p.b1};
+  const long long kend_b = min(p.Kb, kbeg + p.kchunk);
+  const int ktiles = kend > kbeg ? (int)((kend - kbeg + BK - 1) / BK) : 0;
+  const float* bsrc = p.b[bsel];
 
-  float acc[NACC][TM][TN];
-#pragma unroll
-  for (int c = 0; c < NACC; ++c)
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[c][i][j] = 0.f;
+  // a warpgroup takes 64 of the block's 128 rows, a warp 16 of those
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int frag_row = (tid / 32) * 16 + g;
 
-  float ra[NA][LOADS], rb[NB][LOADS];
-  if (kbeg < kend) {
+  auto stage_a = [&](int slot, int x) {
+    return reinterpret_cast<float*>(smem + (size_t)slot * T::STAGE_BYTES) +
+           x * T::A_FLOATS;
+  };
+  auto stage_b = [&](int slot) {
+    return smem + (size_t)slot * T::STAGE_BYTES + NA * T::A_FLOATS * 4;
+  };
+
+  auto load_tile = [&](int kt) {
+    const int slot = kt % STAGES;
+    const long long k0 = kbeg + (long long)kt * BK;
 #pragma unroll
     for (int x = 0; x < NA; ++x) {
-      load_a<AT>(as[x], p.lda, p.M, kend, row0, kbeg, ra[x]);
-      store_a<AT>(sa[0][x], ra[x]);
-    }
+      const float* a = p.a[x];
+      const uint32_t dst = smem_u32(stage_a(slot, x));
 #pragma unroll
-    for (int x = 0; x < NB; ++x) {
-      load_b<BT>(bs[x], p.ldb, p.N, kend, col0, kbeg, rb[x]);
-      store_b<BT>(sb[0][x], rb[x]);
-    }
-  }
-  __syncthreads();
-
-  int buf = 0;
-  for (long long k0 = kbeg; k0 < kend; k0 += BK) {
-    const bool more = k0 + BK < kend;
-    if (more) {  // the next tile's loads are in flight during the FMAs
-#pragma unroll
-      for (int x = 0; x < NA; ++x)
-        load_a<AT>(as[x], p.lda, p.M, kend, row0, k0 + BK, ra[x]);
-#pragma unroll
-      for (int x = 0; x < NB; ++x)
-        load_b<BT>(bs[x], p.ldb, p.N, kend, col0, k0 + BK, rb[x]);
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float4 av[NA], bv[NB];
-#pragma unroll
-      for (int x = 0; x < NA; ++x)
-        av[x] = *reinterpret_cast<const float4*>(&sa[buf][x][kk][ty * TM]);
-#pragma unroll
-      for (int x = 0; x < NB; ++x)
-        bv[x] = *reinterpret_cast<const float4*>(&sb[buf][x][kk][tx * TN]);
-#pragma unroll
-      for (int c = 0; c < NACC; ++c) {
-        const float4 a4 = av[NA == 2 ? c : 0];
-        const float4 b4 = bv[NB == 2 ? c : 0];
-        const float a[TM] = {a4.x, a4.y, a4.z, a4.w};
-        const float b[TN] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j)
-            acc[c][i][j] = fmaf(a[i], b[j], acc[c][i][j]);
+      for (int q = 0; q < T::A_PER_THREAD; ++q) {
+        const int e = tid + q * THREADS;
+        const int i = A_KMAJOR ? e / (BK / AVEC) : (e % (BM / AVEC)) * AVEC;
+        const int k = A_KMAJOR ? (e % (BK / AVEC)) * AVEC : e / (BM / AVEC);
+        const bool ok = row0 + i < p.Ma && k0 + k < kend;
+        const long long off =
+            A_KMAJOR ? (long long)(row0 + i) * p.lda + (k0 + k)
+                     : (k0 + k) * p.lda + (row0 + i);
+        const int at = A_KMAJOR ? i * A_K_LD + k : k * A_MN_LD + i;
+        if (AVEC == 4)
+          cp_async16(dst + 4 * at, ok ? a + off : a, ok);
+        else
+          cp_async4(dst + 4 * at, ok ? a + off : a, ok);
       }
     }
-    if (more) {
+    const uint32_t dst = smem_u32(stage_b(slot));
 #pragma unroll
-      for (int x = 0; x < NA; ++x) store_a<AT>(sa[buf ^ 1][x], ra[x]);
-#pragma unroll
-      for (int x = 0; x < NB; ++x) store_b<BT>(sb[buf ^ 1][x], rb[x]);
+    for (int q = 0; q < T::B_PER_THREAD; ++q) {
+      int col, k;
+      T::b_copy_index(q, &col, &k);
+      if (col >= T::BN) break;
+      const bool ok = col0 + col < p.N && k0 + k < kend_b;
+      const float* src =
+          ok ? bsrc + (long long)(col0 + col) * p.ldb + (k0 + k) : bsrc;
+      cp_async16(dst + T::b_offset(col, k), src, ok);
     }
-    __syncthreads();
-    buf ^= 1;
+  };
+
+  // hi in place, lo into the tile behind it, for the B elements this
+  // thread copied (its own copies are visible to it after the wait)
+  auto split_tile = [&](int kt) {
+    unsigned char* b = stage_b(kt % STAGES);
+#pragma unroll
+    for (int q = 0; q < T::B_PER_THREAD; ++q) {
+      int col, k;
+      T::b_copy_index(q, &col, &k);
+      if (col >= T::BN) break;
+      unsigned char* at = b + T::b_offset(col, k);
+      const float4 x = *reinterpret_cast<const float4*>(at);
+      const uint4 hi = {tf32_hi(x.x), tf32_hi(x.y), tf32_hi(x.z),
+                        tf32_hi(x.w)};
+      const float4 lo = {x.x - __uint_as_float(hi.x),
+                         x.y - __uint_as_float(hi.y),
+                         x.z - __uint_as_float(hi.z),
+                         x.w - __uint_as_float(hi.w)};
+      *reinterpret_cast<uint4*>(at) = hi;
+      *reinterpret_cast<float4*>(at + T::B_BYTES) = lo;
+    }
+    // the tensor cores read shared memory through the asynchronous proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  };
+
+  float acc[NA][NI / 2];
+#pragma unroll
+  for (int x = 0; x < NA; ++x)
+#pragma unroll
+    for (int i = 0; i < NI / 2; ++i) acc[x][i] = 0.f;
+  // The tensor cores add into acc rounding toward zero, which biases a long
+  // sum of positive terms.  So acc holds a chain of PROMOTE stages only,
+  // and the chains are summed here on the CUDA cores (round to nearest),
+  // each thread's NI / 2 sums in its own column of shared memory.
+  float* promoted =
+      reinterpret_cast<float*>(smem + STAGES * T::STAGE_BYTES) + tid;
+  if (PROMOTE) {
+#pragma unroll
+    for (int i = 0; i < NI / 2; ++i) promoted[i * THREADS] = 0.f;
+  }
+  auto promote = [&]() {
+#pragma unroll
+    for (int i = 0; i < NI / 2; ++i) {
+      promoted[i * THREADS] += acc[0][i];
+      acc[0][i] = 0.f;
+    }
+  };
+  // A fragments of the two k8 steps of a stage: [step][operand][hi, lo][4]
+  uint32_t frag[2][NA][2][4];
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int x = 0; x < NA; ++x)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) frag[s][x][0][i] = frag[s][x][1][i] = 0u;
+
+  // rows frag_row and frag_row + 8, depths t and t + 4 of step s
+  auto load_frags = [&](int slot, int s) {
+#pragma unroll
+    for (int x = 0; x < NA; ++x) {
+      const float* a = stage_a(slot, x);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = frag_row + (i & 1) * 8;
+        const int k = 8 * s + t + (i >> 1) * 4;
+        const float v = A_KMAJOR ? a[row * A_K_LD + k] : a[k * A_MN_LD + row];
+        const uint32_t hi = tf32_hi(v);
+        frag[s][x][0][i] = hi;
+        frag[s][x][1][i] = __float_as_uint(v - __uint_as_float(hi));
+      }
+    }
+  };
+
+  // the three products of step s, small terms first
+  auto start_products = [&](int slot, int s) {
+    const uint32_t b = smem_u32(stage_b(slot)) + 32 * s;  // 8 floats a step
+    const uint64_t hi = b_descriptor(b);
+    const uint64_t lo = b_descriptor(b + T::B_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int x = 0; x < NA; ++x) {
+      wgmma_tf32(acc[x], frag[s][x][1], hi);
+      wgmma_tf32(acc[x], frag[s][x][0], lo);
+      wgmma_tf32(acc[x], frag[s][x][0], hi);
+    }
+    wgmma_commit();
+  };
+
+  auto wait_products = [&]() {
+    wgmma_wait();
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int x = 0; x < NA; ++x)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pin(frag[s][x][0][i]);
+          pin(frag[s][x][1][i]);
+        }
+#pragma unroll
+    for (int x = 0; x < NA; ++x)
+#pragma unroll
+      for (int i = 0; i < NI / 2; ++i) pin(acc[x][i]);
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ktiles) load_tile(s);
+    cp_async_commit();
   }
 
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int slot = kt % STAGES;
+    cp_async_wait<STAGES - 2>();  // this thread's copies of tile kt landed
+    split_tile(kt);               // overlaps the products of tile kt - 1
+    wait_products();              // which read the slot refilled below
+    if (PROMOTE && kt > 0 && kt % (PROMOTE ? PROMOTE : 1) == 0) promote();
+    __syncthreads();
+    if (kt + STAGES - 1 < ktiles) load_tile(kt + STAGES - 1);
+    cp_async_commit();
+
+    const bool two = kbeg + (long long)kt * BK + 8 < kend;
+    load_frags(slot, 0);
+    start_products(slot, 0);
+    if (two) {
+      load_frags(slot, 1);  // while step 0 runs
+      start_products(slot, 1);
+    }
+  }
+  wait_products();
+  cp_async_wait<0>();
+
   float local = 0.f;
+  float* out = p.out[bsel];
   const size_t slice = (size_t)blockIdx.z * p.M * p.N;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = row0 + ty * TM + i;
-    if (row >= p.M) continue;
+  for (int j = 0; j < NI / 8; ++j) {
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = col0 + tx * TN + j;
-      if (col >= p.N) continue;
-      const size_t o = (size_t)row * p.ldc + col;
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + frag_row + (i >> 1) * 8;
+      const int col = col0 + 8 * j + 2 * t + (i & 1);
+      // lam's rows are padded to ldc frames: the padding holds flr, so the
+      // wide copies that read it later find finite numbers
+      if (row >= (EPI == EPI_LAM ? p.ldc : p.M) || col >= p.N) continue;
+      const size_t o = (size_t)col * p.ldc + row;
+      const float d =
+          PROMOTE ? promoted[(4 * j + i) * THREADS] + acc[0][4 * j + i]
+                  : acc[0][4 * j + i];
       if (EPI == EPI_LAM) {
-        p.out0[o] = fmaxf(acc[0][i][j], FLR);
+        out[o] = fmaxf(d, FLR);
       } else if (EPI == EPI_HUPD) {
         // the reference's order: h * numer / max(denom + sp, flr)
-        const float hn =
-            p.e[o] * acc[0][i][j] / fmaxf(acc[NACC - 1][i][j] + p.sp, FLR);
-        p.out0[o] = hn;
+        const float hn = p.e[o] * d / fmaxf(acc[NA - 1][4 * j + i] + p.sp, FLR);
+        out[o] = hn;
         local += hn;
       } else if (EPI == EPI_STATS) {
-        p.out0[slice + o] = acc[0][i][j];
-        p.out1[slice + o] = acc[NACC - 1][i][j];
+        out[slice + o] = d;
       } else {  // EPI_DIV
-        const float d = p.e[o] - fmaxf(acc[0][i][j], FLR);
-        local = fmaf(d, d, local);
+        const float diff = p.e[o] - fmaxf(d, FLR);
+        local = fmaf(diff, diff, local);
       }
     }
   }
   if (EPI == EPI_HUPD || EPI == EPI_DIV) {
     const float s = block_sum(local, red);
-    if (threadIdx.x == 0)
-      p.partial[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = s;
+    if (tid == 0) p.partial[blockIdx.x] = s;
   }
 }
 
@@ -321,17 +573,73 @@ void stat_slices(long long n, int* slices, long long* kchunk) {
   *slices = (int)cdiv(n, *kchunk);
 }
 
-template <bool AT, bool BT, int EPI>
-cudaError_t launch(const Args& p, int slices, cudaStream_t stream) {
-  dim3 grid((unsigned)cdiv(p.N, BN), (unsigned)cdiv(p.M, BM), slices);
-  mu_gemm<AT, BT, EPI><<<grid, THREADS, 0, stream>>>(p);
+// The instantiations: lam, the divergence and the statistics (one
+// accumulator, 88 columns of m, promoted sums), the H update (two
+// accumulators, 64 columns of r).
+constexpr int NI_WIDE = 88;
+// stages (of two k8 steps) the tensor cores sum before a promotion.  At
+// 257 x 140,000 x 2000 on an H100 80GB HBM3 (700 W), 8 keeps the error at
+// 3e-6 of the largest entry for 7% of the time; 4 reads 2e-6 for 13%, 16
+// reads 5e-6 for 4%.
+constexpr int PROMOTE_STAGES = 8;
+constexpr int NI_HUPD = 64;
+
+// Blocks of a product whose M axis has `rows` rows and N axis `cols`.
+long long tiles(long long rows, long long cols, int ni) {
+  return cdiv(rows, BM) * cdiv(cols, ni);
+}
+
+template <int NI, int NA, bool A_KMAJOR, int AVEC, int EPI>
+cudaError_t launch_vec(Args p, int slices, cudaStream_t stream) {
+  // the H update contracts over m, a few hundred terms: no promotion
+  constexpr int PROMOTE = EPI == EPI_HUPD ? 0 : PROMOTE_STAGES;
+  using T = Tile<NI, NA, A_KMAJOR, AVEC, PROMOTE>;
+  auto kernel = mu_gemm<NI, NA, A_KMAJOR, AVEC, PROMOTE, EPI>;
+  p.ntn = (int)cdiv(p.N, T::BN);
+  const long long blocks =
+      tiles(p.M, p.N, NI) * (EPI == EPI_STATS ? 2 : 1);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  dim3 grid((unsigned)blocks, 1, slices);
+  kernel<<<grid, THREADS, T::SMEM_BYTES, stream>>>(p);
   return cudaGetLastError();
+}
+
+// 16-byte copies of A where its rows allow them: a leading dimension that
+// is a multiple of four floats (then every tile row starts on 16 bytes, and
+// a copy that starts in range ends in range), else 4-byte copies.
+template <int NI, int NA, bool A_KMAJOR, int EPI>
+cudaError_t launch(const Args& p, int slices, cudaStream_t stream) {
+  bool wide = p.lda % 4 == 0 && p.Ma % 4 == 0 &&
+              (!A_KMAJOR || (p.K % 4 == 0 && p.kchunk % 4 == 0));
+  for (int x = 0; x < NA; ++x)
+    wide = wide && reinterpret_cast<uintptr_t>(p.a[x]) % 16 == 0;
+  return wide ? launch_vec<NI, NA, A_KMAJOR, 4, EPI>(p, slices, stream)
+              : launch_vec<NI, NA, A_KMAJOR, 1, EPI>(p, slices, stream);
 }
 
 cudaError_t sum_all(const float* part, long long count, float scale,
                     float* out, cudaStream_t stream) {
   sum_partials<<<1, SUM_THREADS, 0, stream>>>(part, count, scale, out);
   return cudaGetLastError();
+}
+
+// max(W h, flr) as (m, ld_out) with rows padded to ld_out frames, or with
+// `v` the divergence's per-block partials.
+cudaError_t launch_wh(const float* h, const float* w_pad, long long r_pad,
+                      const float* v, float* out, long long ld_out, int m,
+                      int r, long long n, cudaStream_t stream) {
+  Args p = {};
+  p.a[0] = h; p.lda = n; p.b[0] = w_pad; p.ldb = r_pad;
+  p.M = (int)n; p.Ma = n; p.N = m; p.K = r; p.Kb = r_pad; p.kchunk = r_pad;
+  if (v == nullptr) {
+    p.out[0] = out; p.ldc = ld_out;
+    return launch<NI_WIDE, 1, false, EPI_LAM>(p, 1, stream);
+  }
+  p.e = v; p.ldc = n; p.partial = out;
+  return launch<NI_WIDE, 1, false, EPI_DIV>(p, 1, stream);
 }
 
 }  // namespace
@@ -342,57 +650,56 @@ cudaError_t sum_all(const float* part, long long count, float scale,
     if (err_ != cudaSuccess) return (int)err_; \
   } while (0)
 
-// Workspace of B4, in floats: lam (m x n), the per-block partials of
-// sum(h'), and the per-slice partials of A and B.
+// Workspace of B4, in floats: lam (m x n_pad, n_pad = n rounded up to 4),
+// the per-block partials of sum(h'), and the per-slice partials of A and B.
 extern "C" long long snmf_mu_pass1_workspace(int m, int r, long long n) {
   int slices;
   long long kchunk;
   stat_slices(n, &slices, &kchunk);
-  return (long long)m * n + cdiv(r, BM) * cdiv(n, BN) +
-         2LL * slices * m * r;
+  return m * (cdiv(n, 4) * 4) + tiles(n, r, NI_HUPD) + 2LL * slices * m * r;
 }
 
-extern "C" int snmf_mu_pass1(const float* v, const float* h, const float* w,
-                             float sparsity, float* h_new, float* a,
-                             float* b, float* sp_sum, float* workspace, int m,
-                             int r, long long n, void* stream_p) {
+// v_pad: v (m x n) with rows padded with zeros to n_pad floats; w_pad:
+// W (m x r) padded to r_pad; wt_pad: W^T (r x m) padded to m_pad.  Every pad
+// is the length rounded up to a multiple of 4, every array 16-byte aligned.
+extern "C" int snmf_mu_pass1(const float* v_pad, const float* h,
+                             const float* w_pad, const float* wt_pad,
+                             float sparsity, float* h_new, float* a, float* b,
+                             float* sp_sum, float* workspace, int m, int r,
+                             long long n, void* stream_p) {
   cudaStream_t stream = (cudaStream_t)stream_p;
+  const long long n_pad = cdiv(n, 4) * 4, r_pad = cdiv(r, 4) * 4,
+                  m_pad = cdiv(m, 4) * 4;
   int slices;
   long long kchunk;
   stat_slices(n, &slices, &kchunk);
   float* lam = workspace;
-  float* part_h = lam + (size_t)m * n;
-  const long long n_part_h = cdiv(r, BM) * cdiv(n, BN);
+  float* part_h = lam + (size_t)m * n_pad;
+  const long long n_part_h = tiles(n, r, NI_HUPD);
   float* part_a = part_h + n_part_h;
   float* part_b = part_a + (size_t)slices * m * r;
 
-  Args p = {};
-  // 1. lam = max(W h, flr): M = m, N = n, K = r
-  p.a0 = w; p.lda = r; p.b0 = h; p.ldb = n;
-  p.M = m; p.N = (int)n; p.K = r; p.kchunk = r;
-  p.out0 = lam; p.ldc = n;
-  CHECK((launch<false, false, EPI_LAM>(p, 1, stream)));
+  // 1. lam = max(W h, flr): rows n, columns m, contraction r
+  CHECK(launch_wh(h, w_pad, r_pad, nullptr, lam, n_pad, m, r, n, stream));
 
-  // 2. h' = h * (W^T v) / max(W^T lam + sp, flr): M = r, N = n, K = m
-  p = Args{};
-  p.a0 = w; p.lda = r; p.b0 = v; p.b1 = lam; p.ldb = n;
-  p.M = r; p.N = (int)n; p.K = m; p.kchunk = m;
-  p.out0 = h_new; p.ldc = n; p.e = h; p.sp = sparsity; p.partial = part_h;
-  CHECK((launch<true, false, EPI_HUPD>(p, 1, stream)));
+  // 2. h' = h * (W^T v) / max(W^T lam + sp, flr): rows n, columns r,
+  //    contraction m
+  Args p = {};
+  p.a[0] = v_pad; p.a[1] = lam; p.lda = n_pad; p.b[0] = wt_pad; p.ldb = m_pad;
+  p.M = (int)n; p.Ma = n_pad; p.N = r; p.K = m; p.Kb = m_pad; p.kchunk = m_pad;
+  p.out[0] = h_new; p.ldc = n; p.e = h; p.sp = sparsity; p.partial = part_h;
+  CHECK((launch<NI_HUPD, 2, false, EPI_HUPD>(p, 1, stream)));
 
   // 3. lam' = max(W h', flr)
-  p = Args{};
-  p.a0 = w; p.lda = r; p.b0 = h_new; p.ldb = n;
-  p.M = m; p.N = (int)n; p.K = r; p.kchunk = r;
-  p.out0 = lam; p.ldc = n;
-  CHECK((launch<false, false, EPI_LAM>(p, 1, stream)));
+  CHECK(launch_wh(h_new, w_pad, r_pad, nullptr, lam, n_pad, m, r, n, stream));
 
-  // 4. v h'^T and lam' h'^T per frame slice: M = m, N = r, K = n
+  // 4. (v h'^T)^T and (lam' h'^T)^T per frame slice: rows r, columns m,
+  //    contraction n; stored as (m, r)
   p = Args{};
-  p.a0 = v; p.a1 = lam; p.lda = n; p.b0 = h_new; p.ldb = n;
-  p.M = m; p.N = r; p.K = n; p.kchunk = kchunk;
-  p.out0 = part_a; p.out1 = part_b; p.ldc = r;
-  CHECK((launch<false, true, EPI_STATS>(p, slices, stream)));
+  p.a[0] = h_new; p.lda = n; p.b[0] = v_pad; p.b[1] = lam; p.ldb = n_pad;
+  p.M = r; p.Ma = r; p.N = m; p.K = n; p.Kb = n_pad; p.kchunk = kchunk;
+  p.out[0] = part_a; p.out[1] = part_b; p.ldc = r;
+  CHECK((launch<NI_WIDE, 1, true, EPI_STATS>(p, slices, stream)));
 
   // 5. the fixed-order sums
   const long long mr = (long long)m * r;
@@ -407,19 +714,15 @@ extern "C" int snmf_mu_pass1(const float* v, const float* h, const float* w,
 
 // Workspace of B5, in floats: one partial per block of W h.
 extern "C" long long snmf_mu_pass2_workspace(int m, int r, long long n) {
-  return cdiv(m, BM) * cdiv(n, BN);
+  return tiles(n, m, NI_WIDE);
 }
 
-extern "C" int snmf_mu_pass2(const float* v, const float* h, const float* w,
-                             float* div, float* workspace, int m, int r,
-                             long long n, void* stream_p) {
+extern "C" int snmf_mu_pass2(const float* v, const float* h,
+                             const float* w_pad, float* div, float* workspace,
+                             int m, int r, long long n, void* stream_p) {
   cudaStream_t stream = (cudaStream_t)stream_p;
-  Args p = {};
-  p.a0 = w; p.lda = r; p.b0 = h; p.ldb = n;
-  p.M = m; p.N = (int)n; p.K = r; p.kchunk = r;
-  p.ldc = n; p.e = v; p.partial = workspace;
-  CHECK((launch<false, false, EPI_DIV>(p, 1, stream)));
-  CHECK(sum_all(workspace, cdiv(m, BM) * cdiv(n, BN), 1.f, div, stream));
+  CHECK(launch_wh(h, w_pad, cdiv(r, 4) * 4, v, workspace, n, m, r, n, stream));
+  CHECK(sum_all(workspace, tiles(n, m, NI_WIDE), 1.f, div, stream));
   return 0;
 }
 

@@ -4,17 +4,26 @@ Replaces ``drnmf_tpu/ops/pallas/snmf_mu.py::_pass1_kernel`` (B4) and
 ``::_pass2_kernel`` (B5).  Both kernels are CUDA C++ in
 ``csrc/snmf_mu.cu``, built for ``sm_90a`` at first use (see ``build.py``).
 
-What bounds them on the card: B4 is six products of 2·m·r·n flops, B5 one,
+What bounds them on the card: B4 is six products of 2*m*r*n flops, B5 one,
 against about one byte of compulsory traffic per 400 flops at the
-dictionary's shape (m=257, r=2000), so the f32 rate of the CUDA cores
-bounds both.  What the design does about it: one tiled f32 product kernel
-with an epilogue per use (the ``.cu`` file's note), per-block partials and
+dictionary's shape (m=257, r=2000).  One TF32 tensor-core pass bounds B4
+by operations; B5's bytes bound it.  What the design does about it: one
+tensor-core product mainloop (``wgmma`` on TF32 operands split into a head
+and a tail, three products a term, so the result keeps f32-class accuracy;
+a ring of ``cp.async`` stages; the frames on the instruction's M axis and
+m = 257 on its N axis) with an epilogue per use, per-block partials and
 fixed-order sums in place of the TPU's sequential-grid accumulators, so a
-run is reproducible bit for bit.
+run is reproducible bit for bit.  The tensor cores sum short chains only;
+the chains are added in f32 on the CUDA cores, because the tensor cores'
+own accumulation rounds toward zero.  The ``.cu`` file's note has the rest.
 
 ``snmf_mu_pass1`` and ``snmf_mu_pass2`` are the wrappers: for CUDA tensors
 they launch the kernel or raise; for CPU tensors they run the plain
-versions ``snmf_mu_pass1_reference`` / ``snmf_mu_pass2_reference``.
+versions ``snmf_mu_pass1_reference`` / ``snmf_mu_pass2_reference``.  What a
+wrapper prepares for its kernel is W with its rows zero-padded to a
+multiple of four floats (:func:`pad_rows`; 16-byte copies need it) and, for
+B4, the same of W^T and of v.  :func:`tf32_split` is the split the kernels
+do in registers and shared memory, kept here for the tests.
 ``mu_ed_iteration`` and ``sparse_nmf_ed`` are the solver around them
 (``_mu_ed_iteration`` and ``sparse_nmf_ed_pallas`` in the JAX package): the
 (m, r) W update between the passes is plain PyTorch.
@@ -42,7 +51,7 @@ def _library():
     lib.snmf_mu_pass1_workspace.restype = i64
     lib.snmf_mu_pass2_workspace.argtypes = [i32, i32, i64]
     lib.snmf_mu_pass2_workspace.restype = i64
-    lib.snmf_mu_pass1.argtypes = ([ptr] * 3 + [ctypes.c_float] + [ptr] * 5
+    lib.snmf_mu_pass1.argtypes = ([ptr] * 4 + [ctypes.c_float] + [ptr] * 5
                                   + [i32, i32, i64, ptr])
     lib.snmf_mu_pass1.restype = i32
     lib.snmf_mu_pass2.argtypes = [ptr] * 5 + [i32, i32, i64, ptr]
@@ -66,6 +75,28 @@ def snmf_mu_pass1_reference(v, h, w, sparsity):
 def snmf_mu_pass2_reference(v, h, w):
     """Plain PyTorch version of B5: ``sum((v - max(w @ h, flr))**2)``."""
     return ((v - (w @ h).clamp_min(FLR)) ** 2).sum()
+
+
+def tf32_split(x):
+    """``(hi, lo)`` with ``hi`` the TF32 rounding of float32 ``x`` (10
+    mantissa bits, to nearest, ties away from zero: the low 13 bits zero)
+    and ``lo = x - hi``, exact in float32.  The kernels split every operand
+    of a product so and sum ``a_lo*b_hi + a_hi*b_lo + a_hi*b_hi``."""
+    bits = x.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return hi, x - hi
+
+
+def pad_rows(x, multiple=4):
+    """2-D ``x`` with each row zero-padded to a multiple of ``multiple``
+    entries, contiguous; ``x`` itself when nothing is to pad."""
+    rows, cols = x.shape
+    padded = -(-cols // multiple) * multiple
+    if padded == cols and x.is_contiguous() and x.data_ptr() % 16 == 0:
+        return x
+    out = x.new_zeros((rows, padded))
+    out[:, :cols] = x
+    return out
 
 
 def _check_operands(v, h, w):
@@ -119,12 +150,14 @@ def snmf_mu_pass1(v, h, w, sparsity):
     lib = _library()
     ws = torch.empty(lib.snmf_mu_pass1_workspace(m, r, n),
                      dtype=torch.float32, device=v.device)
+    v_pad, w_pad, wt_pad = pad_rows(v), pad_rows(w), pad_rows(w.T)
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         err = lib.snmf_mu_pass1(
-            v.data_ptr(), h.data_ptr(), w.data_ptr(), float(sparsity),
-            h_new.data_ptr(), a.data_ptr(), b.data_ptr(), sp_sum.data_ptr(),
-            ws.data_ptr(), m, r, n, stream)
+            v_pad.data_ptr(), h.data_ptr(), w_pad.data_ptr(),
+            wt_pad.data_ptr(), float(sparsity), h_new.data_ptr(),
+            a.data_ptr(), b.data_ptr(), sp_sum.data_ptr(), ws.data_ptr(),
+            m, r, n, stream)
     _raise_on(err, lib, "snmf_mu_pass1", m, r, n)
     LAUNCHES["pass1"] += 1
     return h_new, a, b, sp_sum
@@ -143,9 +176,10 @@ def snmf_mu_pass2(v, h, w):
     lib = _library()
     ws = torch.empty(lib.snmf_mu_pass2_workspace(m, r, n),
                      dtype=torch.float32, device=v.device)
+    w_pad = pad_rows(w)
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
-        err = lib.snmf_mu_pass2(v.data_ptr(), h.data_ptr(), w.data_ptr(),
+        err = lib.snmf_mu_pass2(v.data_ptr(), h.data_ptr(), w_pad.data_ptr(),
                                 div.data_ptr(), ws.data_ptr(), m, r, n,
                                 stream)
     _raise_on(err, lib, "snmf_mu_pass2", m, r, n)
@@ -156,21 +190,28 @@ def snmf_mu_pass2(v, h, w):
 PLAIN_PASSES = (snmf_mu_pass1_reference, snmf_mu_pass2_reference)
 
 
-def mu_ed_iteration(v, h, w, sparsity, w_mask, passes=None):
+def mu_ed_iteration(v, h, w, sparsity, w_mask, passes=None, update_w=None):
     """One MU iteration: B4, the normalization-aware W update with column
     renorm (sparse_nmf_gpu.m:232-264; plain PyTorch on (m, r) tensors),
     then B5 on the new W.  ``w_mask`` (r,) bool: the columns that update.
     ``passes``: a (pass1, pass2) pair in place of the kernels (the plain
-    versions, :data:`PLAIN_PASSES`, for a parity run).
+    versions, :data:`PLAIN_PASSES`, for a parity run).  ``update_w``:
+    ``bool(w_mask.any())`` where the caller already knows it (it costs a
+    host read); when False W comes back as it went in, with no update and
+    no renorm, as in the JAX package's default route.
     Returns ``(h_new, w_new, div, cost)``; div and cost are 0-dim tensors."""
     pass1, pass2 = passes or (snmf_mu_pass1, snmf_mu_pass2)
+    if update_w is None:
+        update_w = bool(w_mask.any())
     h_new, a, b, sp_sum = pass1(v, h, w, sparsity)
-    dpw = b + (a * w).sum(dim=0, keepdim=True) * w
-    dmw = a + (b * w).sum(dim=0, keepdim=True) * w
-    w_new = w * dmw / dpw.clamp_min(FLR)
-    w_new = torch.where(w_mask[None, :], w_new, w)
-    # like the TPU solver, renormalises every column, frozen ones included
-    w_new = w_new / (w_new * w_new).sum(dim=0, keepdim=True).sqrt()
+    w_new = w
+    if update_w:
+        dpw = b + (a * w).sum(dim=0, keepdim=True) * w
+        dmw = a + (b * w).sum(dim=0, keepdim=True) * w
+        w_new = w * dmw / dpw.clamp_min(FLR)
+        w_new = torch.where(w_mask[None, :], w_new, w)
+        # like the TPU solver, renormalises every column, frozen ones too
+        w_new = w_new / (w_new * w_new).sum(dim=0, keepdim=True).sqrt()
     div = pass2(v, h_new, w_new)
     return h_new, w_new, div, div + sp_sum
 
@@ -184,21 +225,30 @@ def sparse_nmf_ed(v, w0, h0, sparsity, w_mask, max_iter, conv_eps,
     W's columns and rescales H to match, then iterates until ``max_iter``
     or, when ``conv_eps > 0``, until the cost moves by less than
     ``conv_eps`` relative to the last (one host read per iteration, only
-    then).  ``passes``: see :func:`mu_ed_iteration`.
+    then).  With no column of W to update, W stays exactly the normalised
+    ``w0``.  Iterates on the frames padded with zero frames to a multiple
+    of four.  ``passes``: see :func:`mu_ed_iteration`.
     Returns ``(w, h, divs, costs, n_iter)``; divs and costs hold the
     ``n_iter`` iterations run."""
     wn = (w0 * w0).sum(dim=0).sqrt()
     w = (w0 / wn[None, :]).contiguous()
-    h = (h0 * wn[:, None]).contiguous()
-    v = v.contiguous()
+    n = v.shape[1]
+    # whole groups of four frames: rows of v and h then start on 16 bytes and
+    # the kernels take their wide copies.  A zero frame keeps a zero
+    # activation, adds nothing to either statistic nor to sum(h), and
+    # m * flr^2 = 1e-18 m to the divergence: below f32's resolution there.
+    h, v = pad_rows(h0 * wn[:, None]), pad_rows(v)
+    update_w = bool(w_mask.any())
     divs, costs = [], []
     for it in range(max_iter):
-        h, w, div, cost = mu_ed_iteration(v, h, w, sparsity, w_mask, passes)
+        h, w, div, cost = mu_ed_iteration(v, h, w, sparsity, w_mask, passes,
+                                          update_w)
         divs.append(div)
         costs.append(cost)
         if converged(costs, conv_eps):
             break
-    return w, h, history(divs, v), history(costs, v), len(costs)
+    return (w, h[:, :n].contiguous(), history(divs, v), history(costs, v),
+            len(costs))
 
 
 def converged(costs, conv_eps):
