@@ -9,15 +9,17 @@ toolkit:
 Phases, each printing one JSON line:
 
 1. device  -- requires CUDA; prints the card's name and power limit.
-2. build   -- builds kernels B1/B2 (ops/csrc/drnmf_scan_factored.cu), B3
+2. build   -- builds kernels B1 (ops/csrc/drnmf_scan_factored.cu), B2
+              (ops/csrc/drnmf_scan_factored_interleaved.cu), B3
               (ops/csrc/drnmf_scan_dense.cu) and B4/B5 (ops/csrc/snmf_mu.cu)
               with nvcc, one process each, in parallel; prints ptxas's
               register and spill counts.
 3. kernel  -- B1 against its plain PyTorch version on the card, at a small
               odd shape and at the flagship widths over 64 steps.
    interleave_kernel -- B2 against the same plain version and against B1
-              (bit for bit expected) at an odd batch, at the flagship widths
-              and at the streaming shape (64 rows, 16 steps).
+              (within KERNEL_RTOL/ATOL: they sum in different orders) at an
+              odd batch, at the flagship widths and at the streaming shape
+              (64 rows, 16 steps).
    dense_kernel -- B3 against its plain version with u1, uk, S and W drawn
               at a scale where every term moves the output: a ragged shape,
               K = 1 (dummy S, zero uk), a masked tail, the flagship widths
@@ -36,8 +38,14 @@ Phases, each printing one JSON line:
 6. stages  -- one warm ``enhance_signals`` call of 256 x 8 s, stage by
               stage (its ``lap`` hook, a synchronisation at each stage).
    times   -- B1, B2 and their plain version at the main path's shapes
-              (B=256, T=1021) and at the streaming shape (64 x 16), and the
-              end-to-end real-time factor.
+              (B=256, T=1021) and at the streaming shape (64 x 16), B1 at
+              one row (1 x 1021), and the end-to-end real-time factor.  For
+              B1 also: its plan (tiles, splits, grid) and grid syncs a call
+              at each shape, ms a step, useful TFLOP/s and the share of its
+              bound (fails above 100%), the cost of one grid sync at each
+              shape's grid (a kernel of bare syncs), a bit-equal repeat, and
+              rows 0-63 as a 64-row call and rows 0, 63, 255 alone equal to
+              the same rows of the 256-row call bit for bit.
 7. dense_main -- a dense-U flagship model (the flagship parameters with
               log_U1/log_Uk perturbed from a seed, so the rank-one fold does
               not hold; U trainable in its YAML) through ``enhance_wav`` and
@@ -272,15 +280,20 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def b1_flops(args):
+    """Useful flops of one B1 call on these inputs: 2*F*2r*(2K-1) per valid
+    (unmasked) row-step."""
+    f, n2r, k_layers = args[0].shape[2], args[2].shape[-1], args[7].shape[0]
+    return 2 * f * n2r * (2 * k_layers - 1) * int(args[1].sum().item())
+
+
 def b1_bound(args):
     """(bound ms, 'bytes' or 'operations') of one B1 call on these inputs:
-    2*F*2r*(2K-1) flops per valid (unmasked) row-step over the f32 CUDA-core
-    peak, against each input read once and the output written once over
-    the HBM rate."""
-    x, step_mask = args[0], args[1]
-    bsz, t_len, f = x.shape
-    n2r, k_layers = args[2].shape[-1], args[7].shape[0]
-    flops = 2 * f * n2r * (2 * k_layers - 1) * int(step_mask.sum().item())
+    its useful flops over the f32 CUDA-core peak, against each input read
+    once and the output written once over the HBM rate."""
+    bsz, t_len, _ = args[0].shape
+    n2r = args[2].shape[-1]
+    flops = b1_flops(args)
     nbytes = sum(a.numel() * a.element_size() for a in args)
     nbytes += bsz * t_len * n2r * 4  # output
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
@@ -305,6 +318,51 @@ def b3_bound(args):
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def b1_plan_and_rates(args, ms):
+    """B1's plan on these inputs, its grid syncs a call, ms a step, useful
+    TFLOP/s and share of its bound at ``ms`` a call; the time of one grid
+    sync at its grid (a cooperative kernel of bare syncs, as many as the
+    call makes, timed after a warm-up); and the split of a step by layer:
+    B1 on the same inputs cut to the first layer (P0 and its sync) and to
+    two layers, whose difference is one later layer (BP, R, P and their
+    three syncs)."""
+    import torch
+    from drnmf_torch.ops import drnmf_scan
+
+    bsz, t_len, f = args[0].shape
+    n2r, k_layers = args[2].shape[-1], args[7].shape[0]
+    lib = drnmf_scan._library()
+    plan = drnmf_scan.factored_scan_plan(
+        bsz, f, n2r, torch.cuda.get_device_properties(0).multi_processor_count,
+        lib.drnmf_scan_factored_capacity(drnmf_scan.row_tile(bsz)))
+    syncs = 1 + t_len * (1 + 3 * (k_layers - 1))
+    stream = torch.cuda.current_stream().cuda_stream
+    codes = []
+    sync_ms = cuda_ms(lambda: codes.append(
+        lib.drnmf_grid_sync_probe(syncs, plan.grid, stream)), 3)
+    check(not any(codes), f"the grid-sync probe failed: {codes}")
+    bound_ms, bound_by = b1_bound(args)
+
+    def first_layers(k):
+        cut = list(args)
+        cut[6] = args[6][:max(1, k - 1)]  # dkT (a dummy layer when k == 1)
+        cut[7], cut[8] = args[7][:k], args[8][:k]  # dka, b
+        return cut
+
+    reps = 2 if t_len > 100 else 20
+    k1, k2 = (cuda_ms(lambda a=first_layers(k): drnmf_scan
+                      .drnmf_scan_factored(*a), reps) for k in (1, 2))
+    return {"plan": plan._asdict(), "syncs_per_call": syncs, "ms": ms,
+            "ms_per_step": ms / t_len,
+            "useful_tflops": b1_flops(args) / ms / 1e9,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms,
+            "us_per_grid_sync": 1e3 * sync_ms / syncs,
+            "grid_syncs_ms_per_call": sync_ms,
+            "ms_per_step_first_layer": k1 / t_len,
+            "ms_per_step_each_later_layer": (k2 - k1) / t_len}
 
 
 def synth_signals(rng, n, seconds):
@@ -729,8 +787,8 @@ def kernel_phases(config, params):
         err, rel, ok = compare(inter, ref)
         vs_b1 = (inter - out).abs().max().item()
         log("interleave_kernel", case=name, max_abs_err=err, max_rel_err=rel,
-            max_abs_diff_to_b1=vs_b1, equal_to_b1=bool(torch.equal(inter, out)),
-            rtol=KERNEL_RTOL, atol=KERNEL_ATOL, ok=ok)
+            max_abs_diff_to_b1=vs_b1, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
+            ok=ok)
         check(ok and compare(inter, out)[2],
               f"B2 disagrees with its plain version or with B1 at {name}")
 
@@ -1119,10 +1177,12 @@ def main():
 
     # 2. build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    sources = (drnmf_scan.SOURCE, drnmf_scan.DENSE_SOURCE, snmf_mu.SOURCE)
+    sources = (drnmf_scan.SOURCE, drnmf_scan.INTERLEAVED_SOURCE,
+               drnmf_scan.DENSE_SOURCE, snmf_mu.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(build.build, sources))
     drnmf_scan._library()
+    drnmf_scan._interleaved_library()
     drnmf_scan._dense_library()
     snmf_mu._library()
     for source, lib in zip(sources, built):
@@ -1171,11 +1231,29 @@ def main():
     torch.cuda.synchronize()
     err, rel, ok = compare(out, ref)
     b2_err, b2_rel, b2_ok = compare(inter, ref)
-    b2_equal = bool(torch.equal(inter, out))
+    b2_vs_b1 = (inter - out).abs().max().item()
     check(ok, "B1 disagrees with its plain version at the main path's shape")
     check(b2_ok and compare(inter, out)[2],
-          "B2 disagrees with its plain version at the main path's shape")
-    del out, inter, ref
+          "B2 disagrees with its plain version or B1 at the main path's shape")
+    del inter, ref
+    # fixed summation order: a repeat is bit-equal, and a row's bits do not
+    # depend on the rows it runs with
+    repeat_equal = bool(torch.equal(drnmf_scan.drnmf_scan_factored(*args),
+                                    out))
+
+    def rows(sel):
+        return [a[sel].contiguous() if i < 3 else a
+                for i, a in enumerate(args)]
+
+    row_bits_equal = bool(torch.equal(
+        drnmf_scan.drnmf_scan_factored(*rows(slice(0, STREAMS))),
+        out[:STREAMS])) and all(
+            torch.equal(drnmf_scan.drnmf_scan_factored(
+                *rows(slice(r, r + 1))), out[r:r + 1])
+            for r in (0, STREAMS - 1, len(batch) - 1))
+    check(repeat_equal, "a repeat of B1 at the main path's shape differs")
+    check(row_bits_equal, "a row of B1 differs when run with other rows")
+    del out
     # B1, B2, B2, B1 in turns; each figure the mean of its two readings
     b1_a = cuda_ms(lambda: drnmf_scan.drnmf_scan_factored(*args), 2)
     b2_a = cuda_ms(lambda: drnmf_scan.drnmf_scan_factored(
@@ -1196,14 +1274,25 @@ def main():
         "plain": cuda_ms(lambda: drnmf_scan.drnmf_scan_factored_reference(
             *stream_args), 5)}
     stream_bound = b1_bound(stream_args)
+    one_args = scan_operands(config, params, mag[:1].contiguous())
+    one_ms = cuda_ms(lambda: drnmf_scan.drnmf_scan_factored(*one_args), 3)
+    b1 = {}
+    for key, a, b1_ms in (("256x1021", args, ms),
+                          ("64x16", stream_args, stream_ms["b1"]),
+                          ("1x1021", one_args, one_ms)):
+        b1[key] = b1_plan_and_rates(a, b1_ms)
+    check(all(v["share_of_bound"] <= 1.0 for v in b1.values()),
+          f"B1 reads faster than its bound: {b1}")
     log("times", card=card, shape=list(mag.shape), b1_ms=ms, b2_ms=b2_ms,
         b1_ms_runs=[b1_a, b1_b], b2_ms_runs=[b2_a, b2_b], plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
-        max_rel_err=rel, b2_max_abs_err=b2_err, b2_equal_to_b1=b2_equal,
+        max_rel_err=rel, b2_max_abs_err=b2_err,
+        b2_max_abs_diff_to_b1=b2_vs_b1, b1_repeat_bit_equal=repeat_equal,
+        b1_row_bits_equal=row_bits_equal,
         streaming_shape=[STREAMS, MULTI_BLOCK], streaming_ms=stream_ms,
         streaming_bound_ms=stream_bound[0], streaming_bound_by=stream_bound[1],
-        rtf=rtf)
-    del args, stream_args
+        one_row_ms=one_ms, b1=b1, rtf=rtf)
+    del args, stream_args, one_args
 
     # 7. the dense-U route through the same entry points
     dense_config, dense_params = dense_flagship(config, params)
@@ -1297,7 +1386,7 @@ def main():
     }, {
         "name": "drnmf_scan_factored_interleaved",
         "route": "cuda",
-        "source": "drnmf_torch/ops/csrc/drnmf_scan_factored.cu",
+        "source": "drnmf_torch/ops/csrc/drnmf_scan_factored_interleaved.cu",
         "replaces": "drnmf_tpu/ops/pallas/drnmf_scan.py:213",
         "launches": multi_launches["multi_frozen_u_interleaved"]["interleaved"],
         "launches_by_path": by_path("interleaved"),

@@ -5,8 +5,9 @@
   ``drnmf_scan_pallas_factored``).  CUDA C++ in
   ``csrc/drnmf_scan_factored.cu``.
 - B2, ``drnmf_scan_factored(..., interleave=True)``: the same function with
-  two independent groups of rows a block, a second ``__global__`` entry of
-  the same source.  Replaces ``_kernel_factored_interleaved``.
+  two independent groups of rows a block.  Replaces
+  ``_kernel_factored_interleaved``.  CUDA C++ in
+  ``csrc/drnmf_scan_factored_interleaved.cu``.
 - B3, ``drnmf_scan_dense``: the recurrence with dense (2r, 2r) U and S
   matrices, for a model whose U trains or whose checkpoint breaks the
   fold's structure.  Replaces ``_kernel`` (entry ``drnmf_scan_pallas``).
@@ -15,20 +16,25 @@
 All are built for ``sm_90a`` at first use (see ``build.py``).
 
 What bounds them on the card.  B1/B2: per batch row and step
-2·F·2r·(2K−1) flops against about one byte of compulsory traffic per flop,
-so the f32 rate of the CUDA cores.  One launch runs the whole scan; blocks
-split the batch (two rows each, or two groups of two), keep the carry,
-hidden state and residual in shared memory and stream the weights from L2,
-re-reading the stack at every step: this first version is bound by each
-SM's own load path (a step takes the same 0.4 ms whether 1, 32 or 128
-blocks run: 18.5 MB through one SM, about 45 GB/s), not by L2's aggregate
-rate.  B3: 2·(2r)²·(2K−1) + 2·F·2r·K flops per row and step against a
-weight stack (106 MB at the flagship) that fits no cache, so operations at
-a large batch and the weight reads from HBM at a few rows.  One cooperative
-launch runs the whole scan; each layer is one tiled product whose output
-tiles are spread over the blocks, with a grid synchronisation per layer, so
-each weight is read once per row tile and step.  The source notes in the
-``.cu`` files give the trade-offs.
+2·F·2r·(2K−1) flops against a weight stack (18.5 MB at the flagship) that
+fits the L2, so the f32 rate of the CUDA cores at a large batch, and the
+chain of dependent steps at a few rows.  B1 and B3 run the whole scan in
+one cooperative launch: each half-layer is one tiled product whose output
+tiles are spread over persistent blocks, with a grid synchronisation
+between phases, so each weight is read once per row tile and step.  B1
+splits its back-projection ``hid @ dkT`` over fixed stretches of the 2r
+axis, summed in a phase of their own in a fixed order, so a few rows still
+fill the card (``factored_scan_plan``).  B2 splits the batch instead: two
+groups of two rows a block, the carry in shared memory, every block
+streaming the whole weight stack from L2 at every step, which each SM's own
+load path binds.  B3: 2·(2r)²·(2K−1) + 2·F·2r·K flops per row and step
+against a weight stack (106 MB at the flagship) that fits no cache, so
+operations at a large batch and the weight reads from HBM at a few rows.
+The source notes in the ``.cu`` files give the trade-offs.
+
+B1 and B3 sum every output in a fixed order and use no atomics: a repeat
+is bit-equal, and a row's bits do not depend on the batch it runs in.  B2
+sums in another order than B1, so the two agree within rounding.
 
 Each wrapper launches its kernel for CUDA tensors or raises; for CPU
 tensors it runs the plain version beside it
@@ -39,30 +45,53 @@ against.
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from . import build
 
-SOURCE = "drnmf_scan_factored.cu"  # B1 and B2
+SOURCE = "drnmf_scan_factored.cu"  # B1
+INTERLEAVED_SOURCE = "drnmf_scan_factored_interleaved.cu"  # B2
 DENSE_SOURCE = "drnmf_scan_dense.cu"  # B3
 # kernel launches since the last reset, by kernel; chip_smoke.py reads them
 # to show that the main path went through the kernels
 LAUNCHES = {"factored": 0, "interleaved": 0, "dense": 0}
-# output tile sides the dense kernel is built for
+# tile sides B1 and B3 are built for (rows, and columns of each product)
 DENSE_TILES = (16, 32, 64)
+# B1: rows of the back-projection's contraction one split sums (a multiple
+# of the kernel's contraction chunk, 32), and columns of one partial rowsum
+FACTORED_SPLIT = 256
+FACTORED_GROUP = 16
+
+
+def _error_strings(lib):
+    lib.drnmf_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.drnmf_cuda_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 @functools.cache
 def _library():
     lib = build.load(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.drnmf_scan_factored, lib.drnmf_scan_factored_interleaved):
-        fn.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
-        fn.restype = i32
-    lib.drnmf_cuda_error_string.argtypes = [i32]
-    lib.drnmf_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    lib.drnmf_scan_factored.argtypes = [ptr] * 15 + [i32] * 13 + [ptr]
+    lib.drnmf_scan_factored.restype = i32
+    lib.drnmf_scan_factored_capacity.argtypes = [i32]
+    lib.drnmf_scan_factored_capacity.restype = i32
+    lib.drnmf_grid_sync_probe.argtypes = [i32, i32, ptr]
+    lib.drnmf_grid_sync_probe.restype = i32
+    return _error_strings(lib)
+
+
+@functools.cache
+def _interleaved_library():
+    lib = build.load(INTERLEAVED_SOURCE)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.drnmf_scan_factored_interleaved.argtypes = ([ptr] * 10 + [i32] * 5
+                                                    + [ptr])
+    lib.drnmf_scan_factored_interleaved.restype = i32
+    return _error_strings(lib)
 
 
 @functools.cache
@@ -73,9 +102,7 @@ def _dense_library():
     lib.drnmf_scan_dense.restype = i32
     lib.drnmf_scan_dense_capacity.argtypes = [i32, i32]
     lib.drnmf_scan_dense_capacity.restype = i32
-    lib.drnmf_cuda_error_string.argtypes = [i32]
-    lib.drnmf_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return _error_strings(lib)
 
 
 def drnmf_scan_factored_reference(x, step_mask, h0, diag1, off1, c_uk,
@@ -102,6 +129,55 @@ def drnmf_scan_factored_reference(x, step_mask, h0, diag1, off1, c_uk,
     return torch.stack(outs, dim=1)
 
 
+def row_tile(bsz: int) -> int:
+    """Rows of an output tile of B1 and B3: the smallest built side that
+    covers the batch (64 at most)."""
+    return next((s for s in DENSE_TILES if s >= bsz), DENSE_TILES[-1])
+
+
+class FactoredPlan(NamedTuple):
+    """How B1 cuts its phases (``factored_scan_plan``)."""
+    tm: int  # rows of every tile
+    tn: int  # columns of a projection's output tile (of 2r)
+    tf: int  # columns of a back-projection's output tile (of F)
+    split: int  # L: contraction rows (of 2r) one back-projection split sums
+    splits: int  # S = ceil(2r / L)
+    groups: int  # G: partial rowsums a row, FACTORED_GROUP columns each
+    bp: int  # the batch padded to the row tile
+    grid: int  # blocks of the cooperative launch
+
+
+def factored_scan_plan(bsz: int, f: int, n2r: int, n_sm: int,
+                       capacity: int) -> FactoredPlan:
+    """B1's tiles for this batch and width on a card with ``n_sm`` SMs that
+    keeps ``capacity`` blocks of the kernel resident.
+
+    L, S and G depend on (F, 2r) alone, so a row's bits do not depend on
+    the batch or the grid.  The tiles only keep the SMs busy: each
+    projection's output tile TM x TN and each back-projection item (row
+    tile, TF columns of F, one split) goes to one block; a phase takes
+    about (its items per SM, rounded up) x (width + 16), the 16 standing
+    for the rows of activations every tile loads, whatever its width.  The
+    widest side wins a tie.  The grid is the largest phase's item count,
+    at most ``capacity``."""
+    tm = row_tile(bsz)
+    bp = -(-bsz // tm) * tm
+    row_tiles = bp // tm
+    splits = -(-n2r // FACTORED_SPLIT)
+
+    def items(width, cols, per_tile=1):
+        return row_tiles * -(-cols // width) * per_tile
+
+    def pick(cols, per_tile=1):
+        return min(reversed(DENSE_TILES), key=lambda w: -(
+            -items(w, cols, per_tile) // n_sm) * (w + 16))
+
+    tn, tf = pick(n2r), pick(f, splits)
+    grid = min(max(items(tn, n2r), items(tf, f, splits)), capacity)
+    return FactoredPlan(tm, tn, tf, FACTORED_SPLIT, splits,
+                        -(-n2r // FACTORED_GROUP), bp, grid)
+
+
 def drnmf_scan_factored(x, step_mask, h0, diag1, off1, c_uk, dkt_stack,
                         dka_stack, b_stack, interleave: bool = False):
     """Folded + factored recurrence over the whole sequence.
@@ -111,9 +187,16 @@ def drnmf_scan_factored(x, step_mask, h0, diag1, off1, c_uk, dkt_stack,
     dkt_stack (K-1, 2r, F) = Dhat_k^T (a dummy (1, 2r, F) when K == 1);
     dka_stack (K, F, 2r) = Dhat_k/alph_k; b_stack (K, 2r).
     Returns the hidden states (B, T, 2r) f32; masked steps hold the carry.
-    ``interleave``: on the card, launch the interleaved entry (kernel B2:
-    two independent groups of rows a block) instead of B1's; the function
-    computed is the same, for any B.
+    ``interleave``: on the card, launch kernel B2 (two independent groups
+    of rows a block) instead of B1; the function computed is the same, for
+    any B, summed in another order.
+
+    On the card B1 needs a device with cooperative launch; the wrapper
+    raises otherwise, and on any launch error.  It allocates the kernel's
+    scratch (``factored_scan_plan`` says how it is cut): x with the batch
+    innermost and padded to the row tile (T, F, Bp), the carry and hidden
+    planes (2, 2r, Bp) each, the split partials (S, F, Bp), the residual
+    (F, Bp) and the partial rowsums (2, G, Bp).
     """
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, F), got {tuple(x.shape)}")
@@ -148,23 +231,60 @@ def drnmf_scan_factored(x, step_mask, h0, diag1, off1, c_uk, dkt_stack,
     out = torch.empty((bsz, t_len, n2r), dtype=f32, device=dev)
     if bsz == 0 or t_len == 0:
         return out
+    shapes = f"(B={bsz}, T={t_len}, F={f}, 2r={n2r}, K={k_layers})"
+    if interleave:
+        lib = _interleaved_library()
+        with torch.cuda.device(dev):
+            err = lib.drnmf_scan_factored_interleaved(
+                x.data_ptr(), step_mask.data_ptr(), h0.data_ptr(),
+                diag1.data_ptr(), off1.data_ptr(), c_uk.data_ptr(),
+                dkt_stack.data_ptr(), dka_stack.data_ptr(),
+                b_stack.data_ptr(), out.data_ptr(), bsz, t_len, f, n2r,
+                k_layers, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            msg = lib.drnmf_cuda_error_string(err).decode()
+            raise RuntimeError(f"drnmf_scan_factored (interleaved) launch "
+                               f"failed: {msg} {shapes}")
+        LAUNCHES["interleaved"] += 1
+        return out
+
     lib = _library()
-    name = "interleaved" if interleave else "factored"
-    entry = (lib.drnmf_scan_factored_interleaved if interleave
-             else lib.drnmf_scan_factored)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = entry(
-            x.data_ptr(), step_mask.data_ptr(), h0.data_ptr(),
-            diag1.data_ptr(), off1.data_ptr(), c_uk.data_ptr(),
-            dkt_stack.data_ptr(), dka_stack.data_ptr(), b_stack.data_ptr(),
-            out.data_ptr(), bsz, t_len, f, n2r, k_layers, stream)
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        capacity = lib.drnmf_scan_factored_capacity(row_tile(bsz))
+        if capacity < 1:
+            why = ("the device has no cooperative launch, which orders the "
+                   "phases across blocks" if capacity == 0 else
+                   lib.drnmf_cuda_error_string(-capacity).decode())
+            raise RuntimeError(f"drnmf_scan_factored cannot run here: {why} "
+                               f"{shapes}")
+        plan = factored_scan_plan(bsz, f, n2r, n_sm, capacity)
+        bp = plan.bp
+        # scratch: x batch-innermost, the carry (zero past the batch), the
+        # hidden state, the split partials, the residual, the rowsums
+        x_t = x.new_zeros((t_len, f, bp))
+        x_t[:, :, :bsz] = x.permute(1, 2, 0)
+        carry = x.new_zeros((2, n2r, bp))
+        carry[0, :, :bsz] = h0.T
+        hid = x.new_empty((2, n2r, bp))
+        part = x.new_empty((plan.splits, f, bp))
+        resid = x.new_empty((f, bp))
+        rsp = x.new_empty((2, plan.groups, bp))
+        rs = x.new_empty((bp,))
+        err = lib.drnmf_scan_factored(
+            x_t.data_ptr(), step_mask.data_ptr(), diag1.data_ptr(),
+            off1.data_ptr(), c_uk.data_ptr(), dkt_stack.data_ptr(),
+            dka_stack.data_ptr(), b_stack.data_ptr(), carry.data_ptr(),
+            hid.data_ptr(), part.data_ptr(), resid.data_ptr(),
+            rsp.data_ptr(), rs.data_ptr(), out.data_ptr(), bsz, bp, t_len,
+            f, n2r, k_layers, plan.tm, plan.tn, plan.tf, plan.split,
+            plan.splits, plan.groups, plan.grid,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.drnmf_cuda_error_string(err).decode()
-        raise RuntimeError(f"drnmf_scan_factored ({name}) launch failed: "
-                           f"{msg} (B={bsz}, T={t_len}, F={f}, 2r={n2r}, "
-                           f"K={k_layers})")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"drnmf_scan_factored launch failed: {msg} "
+                           f"{shapes}, {plan}")
+    LAUNCHES["factored"] += 1
     return out
 
 
@@ -199,7 +319,7 @@ def dense_scan_tiles(bsz: int, n2r: int, n_blocks: int):
     side with the least rounds x width, the time of a layer when every
     resident block works on one tile a round; the wider side on a tie (it
     re-reads the activations less)."""
-    tm = next((s for s in DENSE_TILES if s >= bsz), DENSE_TILES[-1])
+    tm = row_tile(bsz)
     row_tiles = -(-bsz // tm)
 
     def cost(tn):

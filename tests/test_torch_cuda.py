@@ -11,9 +11,10 @@ Tolerance rtol 1e-4 / atol 1e-5 on hidden states: f32 on both sides, the
 kernel summing the thin products in another order than cuBLAS.  B4/B5:
 rtol 1e-4 of each output's largest entry (f32 on both sides, sums over up
 to 4,099 frames in another order).  B3: operands drawn so that every term
-moves the output; rtol 1e-4 / atol 1e-5 as B1.  B2 against B1: bit for bit
-(the same arithmetic per row).  Each test walks its cases and names them in
-a failure message.
+moves the output; rtol 1e-4 / atol 1e-5 as B1.  B2 against B1: rtol 1e-4 /
+atol 1e-5 (they sum in different orders); a repeat of B1 or B3 is
+bit-equal.  Each test walks its cases and names them in a failure
+message.
 """
 
 import numpy as np
@@ -81,17 +82,87 @@ def _kernel_matches_plain_version(device):
                     drnmf.step_mask_from_input(x, cfg.mask_value))
                 before = dict(drnmf_scan.LAUNCHES)
                 out = drnmf_scan.drnmf_scan_factored(*args)
+                again = drnmf_scan.drnmf_scan_factored(*args)
                 inter = drnmf_scan.drnmf_scan_factored(*args, interleave=True)
                 torch.cuda.synchronize()
                 assert drnmf_scan.LAUNCHES == {
-                    **before, "factored": before["factored"] + 1,
+                    **before, "factored": before["factored"] + 2,
                     "interleaved": before["interleaved"] + 1}, case
+                assert torch.equal(out, again), case  # fixed summation order
                 ref = drnmf_scan.drnmf_scan_factored_reference(*args)
-                np.testing.assert_allclose(out.cpu().numpy(),
-                                           ref.cpu().numpy(), err_msg=case,
-                                           **TOL)
-                # B2 runs B1's arithmetic per row
-                assert torch.equal(inter, out), case
+                for name, got in (("B1", out), ("B2", inter)):
+                    np.testing.assert_allclose(
+                        got.cpu().numpy(), ref.cpu().numpy(),
+                        err_msg=f"{name} {case}", **TOL)
+                # B2 sums in another order than B1
+                np.testing.assert_allclose(inter.cpu().numpy(),
+                                           out.cpu().numpy(),
+                                           err_msg=f"B2 vs B1 {case}", **TOL)
+
+
+def _row_bits_do_not_depend_on_the_batch(device):
+    """At the flagship widths, the first 64 rows of a 256-row call run as a
+    64-row call, and rows 0, 63 and 255 run alone, equal the same rows of
+    the 256-row call bit for bit (B1's sums do not depend on the tile)."""
+    cfg, params, rng = _model(0, 257, 1000, 5, device)
+    x = rng.uniform(0, 1, (256, 6, 257)).astype(np.float32)
+    x[63, 4:] = cfg.mask_value  # a held row among them
+    x = torch.from_numpy(x).to(device)
+    args = drnmf.factored_scan_operands(
+        params, cfg, x, drnmf.step_mask_from_input(x, cfg.mask_value))
+    full = drnmf_scan.drnmf_scan_factored(*args)
+
+    def rows(sel):
+        return [a[sel].contiguous() if i in (0, 1, 2) else a
+                for i, a in enumerate(args)]
+
+    assert torch.equal(drnmf_scan.drnmf_scan_factored(*rows(slice(0, 64))),
+                       full[:64])
+    for row in (0, 63, 255):
+        alone = drnmf_scan.drnmf_scan_factored(*rows(slice(row, row + 1)))
+        assert torch.equal(alone, full[row:row + 1]), row
+
+
+def _refused_launch_raises(device):
+    """A launch the gate refuses (a device without cooperative launch, or
+    an error from the launch itself) raises with the shapes, counts no
+    launch and never runs the plain version."""
+    cfg, params, rng = _model(1, 9, 8, 3, device)
+    x = torch.from_numpy(rng.uniform(0, 1, (3, 5, 9)).astype(np.float32))
+    x = x.to(device)
+    args = drnmf.factored_scan_operands(
+        params, cfg, x, drnmf.step_mask_from_input(x, cfg.mask_value))
+
+    class Refusing:
+        def __init__(self, lib, name, code):
+            self.lib, self.name, self.code = lib, name, code
+
+        def __getattr__(self, name):
+            if name == self.name:
+                return lambda *a: self.code
+            return getattr(self.lib, name)
+
+    real, plain = (drnmf_scan._library,
+                   drnmf_scan.drnmf_scan_factored_reference)
+
+    def must_not_run(*a):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    drnmf_scan.drnmf_scan_factored_reference = must_not_run
+    try:
+        for entry, code, match in (
+                ("drnmf_scan_factored_capacity", 0, "no cooperative launch"),
+                ("drnmf_scan_factored", 9, "B=3, T=5, F=9, 2r=16, K=3")):
+            refusing = Refusing(real(), entry, code)
+            drnmf_scan._library = lambda: refusing
+            before = dict(drnmf_scan.LAUNCHES)
+            with pytest.raises(RuntimeError, match=match):
+                drnmf_scan.drnmf_scan_factored(*args)
+            assert drnmf_scan.LAUNCHES == before, entry
+            drnmf_scan._library = real
+    finally:
+        drnmf_scan._library = real
+        drnmf_scan.drnmf_scan_factored_reference = plain
 
 
 def _wrapper_rejects_malformed_operands(device):
@@ -329,13 +400,16 @@ def test_dense_and_streaming_on_card(cuda):
 
 @pytest.mark.cuda
 def test_on_card(cuda):
-    """B1 against its plain version, and B2 against B1 bit for bit, over a
-    grid of shapes (one row, one step, odd B and 2r, K = 1 with the dummy
-    dkT, the flagship widths and batch; tied and untied alph); the wrapper's
-    checks; the enhancer on the card against the CPU; and the
+    """B1 and B2 against their plain version and each other over a grid of
+    shapes (one row, one step, odd B and 2r, K = 1 with the dummy dkT, the
+    flagship widths and batch; tied and untied alph), a bit-equal repeat of
+    B1, a row's bits independent of its batch; the wrapper's checks and a
+    refused launch; the enhancer on the card against the CPU; and the
     configurations that stay off every kernel."""
     _kernel_matches_plain_version(cuda)
+    _row_bits_do_not_depend_on_the_batch(cuda)
     _wrapper_rejects_malformed_operands(cuda)
+    _refused_launch_raises(cuda)
     _enhance_matches_cpu(cuda)
     _other_configs_run_plain_loop(cuda)
 

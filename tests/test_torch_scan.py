@@ -4,8 +4,9 @@
 ``drnmf_scan_pallas``, run in interpret mode, with inputs built as
 tests/test_pallas_kernels.py builds them.
 
-Tolerance rtol 1e-5 / atol 1e-6 (B1, B3) and rtol 1e-6 / atol 1e-6 (B2, as
-the JAX test of the interleaved kernel): f32 on both sides, different
+Tolerance rtol 1e-5 / atol 1e-6 (B1, B3, and B1's order of arithmetic:
+its back-projection split over the 2r axis) and rtol 1e-6 / atol 1e-6 (B2,
+as the JAX test of the interleaved kernel): f32 on both sides, different
 summation order in the products.  B3's plain version against the JAX
 model's XLA scan: rtol 1e-4 / atol 1e-5, as the JAX test holds its Pallas
 kernel.  The CUDA kernels themselves are held against the plain versions in
@@ -71,6 +72,98 @@ def test_reference_matches_pallas_factored(rng):
         out = tscan.drnmf_scan_factored_reference(*_to_torch(args)).numpy()
         assert out.shape == ref.shape, case
         np.testing.assert_allclose(out, ref, err_msg=case, **TOL)
+
+
+def _split_order_scan(x, step_mask, h0, diag1, off1, c_uk, dkt_stack,
+                      dka_stack, b_stack, split):
+    """Kernel B1's order of arithmetic in plain PyTorch: each rowsum as
+    partial sums of 16 columns added in group order, and each
+    back-projection as S partials over ``split`` rows of its contraction,
+    subtracted from x_t in split order."""
+    n2r = h0.shape[-1]
+    group = tscan.FACTORED_GROUP
+    h, outs = h0, []
+    for t in range(x.shape[1]):
+        x_t = x[:, t]
+        rs = torch.zeros_like(h[:, :1])
+        for g0 in range(0, n2r, group):
+            rs = rs + h[:, g0:g0 + group].sum(dim=1, keepdim=True)
+        hidden = torch.relu(h * (diag1 - off1) + off1 * rs
+                            + x_t @ dka_stack[0] + b_stack[0])
+        for k in range(1, dka_stack.shape[0]):
+            resid = x_t
+            for s0 in range(0, n2r, split):
+                resid = resid - (hidden[:, s0:s0 + split]
+                                 @ dkt_stack[k - 1, s0:s0 + split])
+            hidden = torch.relu(c_uk * rs + hidden + resid @ dka_stack[k]
+                                + b_stack[k])
+        h = torch.where(step_mask[:, t, None], hidden, h)
+        outs.append(h)
+    return torch.stack(outs, dim=1)
+
+
+def test_split_order_matches_pallas_factored(rng):
+    """The split of B1's back-projection computes the TPU kernel's function:
+    at a split of 8 rows (S > 1 at every shape of CASES) and at the kernel's
+    own split with 2r > 2L, so S = 3."""
+    cases = [(c, 8) for c in CASES] + [((2, 3, 33, 300, 2),
+                                        tscan.FACTORED_SPLIT)]
+    for shape, split in cases:
+        case = "B%d_T%d_F%d_r%d_K%d" % shape + f" L={split}"
+        args = _operands(rng, *shape)
+        assert -(-2 * shape[3] // split) > 1, case
+        ref = np.asarray(drnmf_scan_pallas_factored(*args, interpret=True))
+        out = _split_order_scan(*_to_torch(args), split).numpy()
+        np.testing.assert_allclose(out, ref, err_msg=case, **TOL)
+
+
+def test_factored_scan_plan_covers_every_output_and_fixes_the_bits():
+    """B1's plan: the tiles of each phase, mapped from work items as the
+    kernel maps them, cover every output exactly once; L is a multiple of
+    the kernel's contraction chunk (32) and the splits cover [0, 2r); L, S
+    and G depend on neither the batch nor the card (SMs, capacity)."""
+    for f, n2r in ((9, 16), (257, 2000), (33, 14)):
+        fixed = set()
+        for bsz in (1, 3, 64, 256, 257):
+            for n_sm, capacity in ((132, 264), (132, 1), (8, 24)):
+                case = f"F={f} 2r={n2r} B={bsz} sm={n_sm} cap={capacity}"
+                plan = tscan.factored_scan_plan(bsz, f, n2r, n_sm, capacity)
+                fixed.add((plan.split, plan.splits, plan.groups))
+                assert plan.bp % plan.tm == 0, case
+                assert bsz <= plan.bp < bsz + plan.tm, case
+                assert 1 <= plan.grid <= capacity, case
+                assert plan.split % 32 == 0, case
+                splits = np.zeros(n2r, int)
+                for s in range(plan.splits):
+                    splits[s * plan.split:(s + 1) * plan.split] += 1
+                assert (splits == 1).all(), case
+                # rowsum groups of 16 columns: each inside one output tile
+                assert plan.groups == -(-n2r // 16), case
+                assert plan.tn % 16 == 0, case
+                # projections: tile -> (m0, n0)
+                col_tiles = -(-n2r // plan.tn)
+                hits = np.zeros((plan.bp, n2r), int)
+                for tile in range(plan.bp // plan.tm * col_tiles):
+                    m0 = tile // col_tiles * plan.tm
+                    n0 = tile % col_tiles * plan.tn
+                    hits[m0:m0 + plan.tm, n0:n0 + plan.tn] += 1
+                assert (hits == 1).all(), case
+                # back-projection: item -> (split, F-column tile, row tile)
+                f_tiles = -(-f // plan.tf)
+                hits = np.zeros((plan.splits, plan.bp, f), int)
+                for item in range(plan.bp // plan.tm * f_tiles * plan.splits):
+                    s = item % plan.splits
+                    f0 = item // plan.splits % f_tiles * plan.tf
+                    m0 = item // (plan.splits * f_tiles) * plan.tm
+                    hits[s, m0:m0 + plan.tm, f0:f0 + plan.tf] += 1
+                assert (hits == 1).all(), case
+        assert len(fixed) == 1, (f, n2r, fixed)
+    # the tiles keep the card busy at the main path's shapes
+    assert tscan.factored_scan_plan(256, 257, 2000, 132, 264)[:3] == (64, 64,
+                                                                     32)
+    assert tscan.factored_scan_plan(64, 257, 2000, 132, 264)[:3] == (64, 16,
+                                                                    32)
+    assert tscan.factored_scan_plan(1, 257, 2000, 132, 264)[:3] == (16, 16, 32)
 
 
 def test_wrapper_on_cpu_runs_plain_version_and_rejects_malformed(rng):
