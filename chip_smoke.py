@@ -22,8 +22,8 @@ Phases, each printing one JSON line:
               (64 rows, 16 steps).
    dense_kernel -- B3 against its plain version with u1, uk, S and W drawn
               at a scale where every term moves the output: a ragged shape,
-              K = 1 (dummy S, zero uk), a masked tail, the flagship widths
-              at a batch of 256, of 64 and of 1.
+              K = 1 (dummy S, zero uk, odd 2r), a masked tail, the flagship
+              widths at a batch of 256, of 64 and of 1; logs B3's plan.
    snmf_kernel -- B4 and B5 against their plain versions (and one whole MU
               iteration with half of W frozen) at the JAX hold-out shape, at
               shapes that cut every tile (n below one tile, n = 1, 2, 3 mod 4,
@@ -52,7 +52,16 @@ Phases, each printing one JSON line:
               ``enhance_signals`` on 8 s signals: B3 launches once per
               enhance call, B1 never.
    dense_parity -- that path against the path on B3's plain version.
-   dense_times -- B3, its plain version and its bound at that shape.
+   dense_times -- B3 and its plain version at that shape and at the
+              streaming shape (64 x 16), B3 at one row (1 x 1021); for each
+              B3's plan, grid syncs a call, ms a step, useful TFLOP/s, its
+              bound (one TF32 pass or the bytes, the weights past the L2
+              counted again every step) beside what three TF32 passes and
+              the f32 CUDA cores could reach, the share of each (fails
+              above 100% of the first two), and the step split by layer;
+              a bit-equal repeat; rows 0-63 as a 64-row call and rows 0,
+              63, 255 alone against the same rows of the batch (bit
+              equality reported, the kernel tolerance held).
 8. stream  -- ``StreamingEnhancer`` (64-frame blocks) on one 8 s signal fed
               in odd chunks, frozen-U (B1) and dense-U (B3), against
               ``enhance_signals`` on the card.
@@ -109,6 +118,7 @@ import numpy as np
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2**20  # H100 SXM L2 (50 MiB)
 FS = 16000
 N_FFT, HOP = 512, 128
 # B1 against its plain version: f32 on both sides with a different
@@ -301,23 +311,86 @@ def b1_bound(args):
                                        else "bytes")
 
 
-def b3_bound(args):
-    """(bound ms, 'bytes' or 'operations') of one B3 call on these inputs:
-    2*(2r)^2*(2K-1) + 2*F*2r*K flops per valid (unmasked) row-step over the
-    f32 CUDA-core peak, against each input the function reads (K == 1 reads
-    neither uk nor the S dummy) once and the output written once over the
-    HBM rate."""
-    x, step_mask = args[0], args[1]
-    bsz, t_len, f = x.shape
+def b3_flops(args):
+    """Useful flops of one B3 call on these inputs: 2*(2r)^2*(2K-1) +
+    2*F*2r*K per valid (unmasked) row-step."""
+    f, n2r, k_layers = args[0].shape[2], args[2].shape[-1], args[6].shape[0]
+    return ((2 * n2r * n2r * (2 * k_layers - 1) + 2 * f * n2r * k_layers)
+            * int(args[1].sum().item()))
+
+
+def b3_bounds(args):
+    """Bounds of one B3 call on these inputs, in ``snmf_bounds``' form.
+    The bytes: each input the function reads (K == 1 reads neither uk nor
+    the S dummy) once, the output once, and the weight stack's bytes past
+    the L2 once more at every step after the first (they fit no cache, so
+    each step reads them from HBM again).  ``bound_ms``/``bound_by``: the
+    larger of one dense TF32 tensor-core pass and the bytes;
+    ``bound_3xtf32_ms``: with the three TF32 passes a term that the
+    kernel's f32-class accuracy costs; ``bound_f32_cuda_cores_ms``: with
+    the f32 rate of the CUDA cores, the bound B3 had before it ran on the
+    tensor cores (no longer a bound of it)."""
+    bsz, t_len, _ = args[0].shape
     n2r, k_layers = args[2].shape[-1], args[6].shape[0]
-    flops = ((2 * n2r * n2r * (2 * k_layers - 1) + 2 * f * n2r * k_layers)
-             * int(step_mask.sum().item()))
+    flops = b3_flops(args)
     read = [a for i, a in enumerate(args) if k_layers > 1 or i not in (4, 5)]
+    weights = sum(a.numel() * a.element_size() for a in read[3:])
     nbytes = sum(a.numel() * a.element_size() for a in read)
     nbytes += bsz * t_len * n2r * 4  # output
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    nbytes += (t_len - 1) * max(0, weights - L2_BYTES)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_TF32_FLOPS
+    return {"flops": flops, "bytes": nbytes, "weight_bytes": weights,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_3xtf32_ms": 1e3 * max(3 * t_ops, t_bytes),
+            "bound_f32_cuda_cores_ms": 1e3 * max(flops / PEAK_F32_FLOPS,
+                                                 t_bytes)}
+
+
+def b3_plan(bsz, f, n2r):
+    """B3's plan for this batch and width on this card."""
+    from drnmf_torch.ops import drnmf_scan
+
+    capacity = drnmf_scan._dense_library().drnmf_scan_dense_capacity(
+        drnmf_scan.dense_batch_tile(bsz))
+    return drnmf_scan.dense_scan_plan(bsz, f, n2r, capacity)
+
+
+def b3_plan_and_rates(args, ms):
+    """B3's plan on these inputs, its grid syncs a call (two a layer), ms a
+    step, useful TFLOP/s, its bounds and the share of each at ``ms`` a
+    call; and the split of a step by layer: B3 on the same inputs cut to
+    the first layer and to two layers, whose difference is one later layer
+    (its products over h, hid and x_t, its sums, two syncs)."""
+    from drnmf_torch.ops import drnmf_scan
+
+    bsz, t_len, f = args[0].shape
+    n2r, k_layers = args[2].shape[-1], args[6].shape[0]
+    bounds = b3_bounds(args)
+
+    def first_layers(k):
+        cut = list(args)
+        cut[5] = args[5][:max(1, k - 1)]  # S (a dummy layer when k == 1)
+        cut[6], cut[7] = args[6][:k], args[7][:k]  # W, b
+        return cut
+
+    reps = 2 if t_len > 100 else 20
+    k1, k2 = (cuda_ms(lambda a=first_layers(k): drnmf_scan
+                      .drnmf_scan_dense(*a), reps) for k in (1, 2))
+    return {"plan": b3_plan(bsz, f, n2r)._asdict(),
+            "syncs_per_call": 2 * k_layers * t_len, "ms": ms,
+            "ms_per_step": ms / t_len,
+            "useful_tflops": bounds["flops"] / ms / 1e9,
+            **{key: bounds[key] for key in (
+                "bound_ms", "bound_by", "bound_3xtf32_ms",
+                "bound_f32_cuda_cores_ms", "bytes", "weight_bytes")},
+            "share_of_bound": bounds["bound_ms"] / ms,
+            "share_of_3xtf32_bound": bounds["bound_3xtf32_ms"] / ms,
+            "share_of_f32_cuda_cores_bound":
+                bounds["bound_f32_cuda_cores_ms"] / ms,
+            "ms_per_step_first_layer": k1 / t_len,
+            "ms_per_step_each_later_layer": (k2 - k1) / t_len}
 
 
 def b1_plan_and_rates(args, ms):
@@ -817,9 +890,7 @@ def kernel_phases(config, params):
         log("dense_kernel", case=name, max_abs_err=err, max_rel_err=rel,
             rtol=KERNEL_RTOL, atol=KERNEL_ATOL, ok=ok, max_abs_out=ref.abs()
             .max().item(), moved_by_operand=moved,
-            tile=list(drnmf_scan.dense_scan_tiles(
-                shape[0], shape[3], torch.cuda.get_device_properties(0)
-                .multi_processor_count)))
+            plan=b3_plan(shape[0], shape[2], shape[3])._asdict())
         check(ok, f"B3 disagrees with its plain version at {name}")
         check(all(m > 100 * KERNEL_ATOL for m in moved.values()),
               f"an operand of B3 moves nothing at {name}: {moved}")
@@ -1321,29 +1392,68 @@ def main():
     torch.cuda.synchronize()
     b3_err, b3_rel, ok = compare(out, ref)
     check(ok, "B3 disagrees with its plain version at the main path's shape")
-    del out, ref
+    del ref
+    # no atomics, the stretches fixed by (F, 2r): a repeat is bit-equal; a
+    # row's sums run in the same order in any batch, whether the tensor
+    # cores give it the same bits at another instruction width is read
+    # here (reported), and it must agree within the kernel tolerance
+    b3_repeat_equal = bool(torch.equal(drnmf_scan.drnmf_scan_dense(*args),
+                                       out))
+    check(b3_repeat_equal, "a repeat of B3 at the main path's shape differs")
+
+    def dense_rows(sel):
+        return [a[sel].contiguous() if i < 3 else a
+                for i, a in enumerate(args)]
+
+    b3_rows = {}
+    n_rows = len(dense_batch)
+    for label, sel in [("0-63", slice(0, min(STREAMS, n_rows)))] + [
+            (str(r), slice(r, r + 1)) for r in (0, STREAMS - 1, n_rows - 1)]:
+        alone = drnmf_scan.drnmf_scan_dense(*dense_rows(sel))
+        rows_err, _, rows_ok = compare(alone, out[sel])
+        b3_rows[label] = {"bit_equal": bool(torch.equal(alone, out[sel])),
+                          "max_abs_diff": rows_err, "within_tol": rows_ok}
+        check(rows_ok, f"B3's rows {label} alone disagree with the batch")
+    del out, alone
     # plain, B3, B3, plain in turns
     p_a = cuda_ms(lambda: drnmf_scan.drnmf_scan_dense_reference(*args), 1)
-    b3_a = cuda_ms(lambda: drnmf_scan.drnmf_scan_dense(*args), 1)
-    b3_b = cuda_ms(lambda: drnmf_scan.drnmf_scan_dense(*args), 1)
+    b3_a = cuda_ms(lambda: drnmf_scan.drnmf_scan_dense(*args), 2)
+    b3_b = cuda_ms(lambda: drnmf_scan.drnmf_scan_dense(*args), 2)
     p_b = cuda_ms(lambda: drnmf_scan.drnmf_scan_dense_reference(*args), 1)
     b3_ms, b3_plain_ms = (b3_a + b3_b) / 2, (p_a + p_b) / 2
-    b3_bound_ms, b3_bound_by = b3_bound(args)
+    b3_bounds_main = b3_bounds(args)
     stream_args = scan_operands(dense_config, dense_params,
                                 dense_mag[:STREAMS, :MULTI_BLOCK].contiguous())
     dense_stream_ms = {
         "b3": cuda_ms(lambda: drnmf_scan.drnmf_scan_dense(*stream_args), 20),
         "plain": cuda_ms(lambda: drnmf_scan.drnmf_scan_dense_reference(
             *stream_args), 5)}
-    dense_stream_bound = b3_bound(stream_args)
+    dense_stream_bound = b3_bounds(stream_args)
+    one_args = scan_operands(dense_config, dense_params,
+                             dense_mag[:1].contiguous())
+    one_ms = cuda_ms(lambda: drnmf_scan.drnmf_scan_dense(*one_args), 3)
+    b3 = {}
+    for key, a, b3_call_ms in ((f"{n_rows}x1021", args, b3_ms),
+                               ("64x16", stream_args, dense_stream_ms["b3"]),
+                               ("1x1021", one_args, one_ms)):
+        b3[key] = b3_plan_and_rates(a, b3_call_ms)
+    # the f32 CUDA-core figure is no bound of a tensor-core kernel: only
+    # the other two may not be beaten
+    check(all(v["share_of_bound"] <= 1.0 and v["share_of_3xtf32_bound"] <= 1.0
+              for v in b3.values()), f"B3 reads faster than its bound: {b3}")
     log("dense_times", card=card, shape=list(dense_mag.shape), b3_ms=b3_ms,
         b3_ms_runs=[b3_a, b3_b], plain_ms=b3_plain_ms,
-        plain_ms_runs=[p_a, p_b], bound_ms=b3_bound_ms, bound_by=b3_bound_by,
+        plain_ms_runs=[p_a, p_b],
+        **{key: b3_bounds_main[key] for key in (
+            "bound_ms", "bound_by", "bound_3xtf32_ms",
+            "bound_f32_cuda_cores_ms")},
         max_abs_err=b3_err, max_rel_err=b3_rel,
+        b3_repeat_bit_equal=b3_repeat_equal, b3_rows_alone=b3_rows,
         streaming_shape=[STREAMS, MULTI_BLOCK], streaming_ms=dense_stream_ms,
-        streaming_bound_ms=dense_stream_bound[0],
-        streaming_bound_by=dense_stream_bound[1], rtf=dense_rtf)
-    del args, stream_args, dense_mag
+        streaming_bound_ms=dense_stream_bound["bound_ms"],
+        streaming_bound_by=dense_stream_bound["bound_by"],
+        one_row_ms=one_ms, b3=b3, rtf=dense_rtf)
+    del args, stream_args, one_args, dense_mag
 
     # 8. the online path
     stream_phase(card, "frozen_u", config, params, "factored")
@@ -1406,8 +1516,10 @@ def main():
         "max_abs_err": b3_err,
         "ms": b3_ms,
         "plain_ms": b3_plain_ms,
-        "bound_ms": b3_bound_ms,
-        "bound_by": b3_bound_by,
+        "bound_ms": b3_bounds_main["bound_ms"],
+        "bound_by": b3_bounds_main["bound_by"],
+        "bound_3xtf32_ms": b3_bounds_main["bound_3xtf32_ms"],
+        "bound_f32_cuda_cores_ms": b3_bounds_main["bound_f32_cuda_cores_ms"],
         "library_ms": None,
     }]
     check(all(row["launches"] > 0 for row in scan_rows + snmf_rows),

@@ -4,8 +4,9 @@ and check a wrapper's operands before their pointers go to it.
 Route: ``nvcc`` for ``sm_90a`` into a library with a plain C interface,
 loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).  The
 library goes to ``build/drnmf_torch_kernels/`` at the root of the checkout,
-named by a hash of the source and the flags, so a changed source rebuilds.
-Nothing is built or loaded when a module is imported."""
+named by a hash of the source, every header of ``csrc/`` (``*.cuh``) and
+the flags, so a changed source or header rebuilds.  Nothing is built or
+loaded when a module is imported."""
 
 import ctypes
 import hashlib
@@ -35,9 +36,14 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
-    digest = hashlib.sha256((CSRC / source).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where the library built from ``csrc/<source>`` lives: named by a hash
+    of the source, of every ``csrc/*.cuh`` (a source may include any of
+    them) and of the flags."""
+    h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 

@@ -19,22 +19,29 @@ What bounds them on the card.  B1/B2: per batch row and step
 2·F·2r·(2K−1) flops against a weight stack (18.5 MB at the flagship) that
 fits the L2, so the f32 rate of the CUDA cores at a large batch, and the
 chain of dependent steps at a few rows.  B1 and B3 run the whole scan in
-one cooperative launch: each half-layer is one tiled product whose output
-tiles are spread over persistent blocks, with a grid synchronisation
-between phases, so each weight is read once per row tile and step.  B1
-splits its back-projection ``hid @ dkT`` over fixed stretches of the 2r
-axis, summed in a phase of their own in a fixed order, so a few rows still
-fill the card (``factored_scan_plan``).  B2 splits the batch instead: two
-groups of two rows a block, the carry in shared memory, every block
-streaming the whole weight stack from L2 at every step, which each SM's own
-load path binds.  B3: 2·(2r)²·(2K−1) + 2·F·2r·K flops per row and step
-against a weight stack (106 MB at the flagship) that fits no cache, so
-operations at a large batch and the weight reads from HBM at a few rows.
-The source notes in the ``.cu`` files give the trade-offs.
+one cooperative launch, each phase spread over persistent blocks with a
+grid synchronisation between phases.  B1: each half-layer one tiled f32
+product whose output tiles go to the blocks, so each weight is read once
+per row tile and step; its back-projection ``hid @ dkT`` is split over
+fixed stretches of the 2r axis, summed in a phase of their own in a fixed
+order, so a few rows still fill the card (``factored_scan_plan``).  B2
+splits the batch instead: two groups of two rows a block, the carry in
+shared memory, every block streaming the whole weight stack from L2 at
+every step, which each SM's own load path binds.  B3: 2·(2r)²·(2K−1) +
+2·F·2r·K flops per row and step against a weight stack (106 MB at the
+flagship) that fits no cache, so operations at a large batch and the
+weight reads from HBM and the grid syncs at a few rows.  Each layer runs
+on the tensor cores in error-compensated TF32 (three products a term, as
+B4/B5), transposed so that 2r rides the instruction's M axis and the
+batch its N axis (8 to 64 wide), its contraction ([h | hid | x_t] as one
+axis) cut into fixed stretches whose partials a second phase adds in
+stretch order (``dense_scan_plan``).  The source notes in the ``.cu``
+files give the trade-offs.
 
 B1 and B3 sum every output in a fixed order and use no atomics: a repeat
-is bit-equal, and a row's bits do not depend on the batch it runs in.  B2
-sums in another order than B1, so the two agree within rounding.
+is bit-equal, and the order of a row's sums does not depend on the batch
+it runs in.  B2 sums in another order than B1, so the two agree within
+rounding.
 
 Each wrapper launches its kernel for CUDA tensors or raises; for CPU
 tensors it runs the plain version beside it
@@ -57,12 +64,19 @@ DENSE_SOURCE = "drnmf_scan_dense.cu"  # B3
 # kernel launches since the last reset, by kernel; chip_smoke.py reads them
 # to show that the main path went through the kernels
 LAUNCHES = {"factored": 0, "interleaved": 0, "dense": 0}
-# tile sides B1 and B3 are built for (rows, and columns of each product)
+# tile sides B1 is built for (rows, and columns of each product)
 DENSE_TILES = (16, 32, 64)
 # B1: rows of the back-projection's contraction one split sums (a multiple
 # of the kernel's contraction chunk, 32), and columns of one partial rowsum
 FACTORED_SPLIT = 256
 FACTORED_GROUP = 16
+# B3: rows of 2r a work item covers (the instruction's M axis, two
+# warpgroups), the batch tiles it is built for (the instruction's N), and
+# the stretches a later layer's contraction is cut into (2r = 2000 gives 16
+# row tiles, so 128 items a batch tile: one for each SM of an H100)
+DENSE_M_TILE = 128
+DENSE_BATCH_TILES = (8, 16, 32, 64)
+DENSE_STRETCHES = 8
 
 
 def _error_strings(lib):
@@ -98,9 +112,9 @@ def _interleaved_library():
 def _dense_library():
     lib = build.load(DENSE_SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.drnmf_scan_dense.argtypes = [ptr] * 9 + [i32] * 9 + [ptr]
+    lib.drnmf_scan_dense.argtypes = [ptr] * 10 + [i32] * 11 + [ptr]
     lib.drnmf_scan_dense.restype = i32
-    lib.drnmf_scan_dense_capacity.argtypes = [i32, i32]
+    lib.drnmf_scan_dense_capacity.argtypes = [i32]
     lib.drnmf_scan_dense_capacity.restype = i32
     return _error_strings(lib)
 
@@ -130,8 +144,8 @@ def drnmf_scan_factored_reference(x, step_mask, h0, diag1, off1, c_uk,
 
 
 def row_tile(bsz: int) -> int:
-    """Rows of an output tile of B1 and B3: the smallest built side that
-    covers the batch (64 at most)."""
+    """Rows of an output tile of B1: the smallest built side that covers
+    the batch (64 at most)."""
     return next((s for s in DENSE_TILES if s >= bsz), DENSE_TILES[-1])
 
 
@@ -312,21 +326,44 @@ def drnmf_scan_dense_reference(x, step_mask, h0, u1, uk, s_stack, w_stack,
     return torch.stack(outs, dim=1)
 
 
-def dense_scan_tiles(bsz: int, n2r: int, n_blocks: int):
-    """The dense kernel's output tile (rows, columns) for this batch and
-    width on a card that keeps ``n_blocks`` blocks resident.  Rows: the
-    smallest built side that covers the batch (64 at most).  Columns: the
-    side with the least rounds x width, the time of a layer when every
-    resident block works on one tile a round; the wider side on a tie (it
-    re-reads the activations less)."""
-    tm = row_tile(bsz)
-    row_tiles = -(-bsz // tm)
+class DensePlan(NamedTuple):
+    """How B3 cuts its phases (``dense_scan_plan``)."""
+    m_tile: int  # rows of 2r a work item covers (the instruction's M)
+    ni: int  # batch columns a work item covers (the instruction's N)
+    bp: int  # the batch padded to ni
+    fp: int  # F padded to a multiple of 4: the rows of x's scratch
+    ld: int  # 2r padded to a multiple of 4: the rows of planes and weights
+    split: int  # L: the depths of one stretch of a layer's contraction
+    stretches: int  # of a later layer, ceil((2·ld + fp) / L); layer 0 fewer
+    items: int  # work items of a later layer's products
+    grid: int  # blocks of the cooperative launch
 
-    def cost(tn):
-        return -(-(row_tiles * -(-n2r // tn)) // max(1, n_blocks)) * tn
 
-    tn = min(reversed(DENSE_TILES), key=cost)
-    return tm, tn
+def dense_batch_tile(bsz: int) -> int:
+    """B3's batch tile: the narrowest built width that covers the batch,
+    the widest (64) past it."""
+    return next((s for s in DENSE_BATCH_TILES if s >= bsz),
+                DENSE_BATCH_TILES[-1])
+
+
+def dense_scan_plan(bsz: int, f: int, n2r: int, capacity: int) -> DensePlan:
+    """B3's cut for this batch and width on a card that keeps ``capacity``
+    blocks of the batch tile's kernel resident.
+
+    A layer's contraction is one axis, [h | hid | x_t], of ld + ld + fp
+    depths (ld + fp at layer 0), cut into stretches of L depths: L is the
+    smallest multiple of 16 that cuts a later layer into DENSE_STRETCHES,
+    so it depends on (F, 2r) alone and the order of a row's sums does not
+    depend on the batch or the grid.  The grid is the largest phase's item
+    count (a later layer's products), at most ``capacity``."""
+    ni = dense_batch_tile(bsz)
+    bp = -(-bsz // ni) * ni
+    fp, ld = -(-f // 4) * 4, -(-n2r // 4) * 4
+    split = -(-(2 * ld + fp) // (16 * DENSE_STRETCHES)) * 16
+    stretches = -(-(2 * ld + fp) // split)
+    items = stretches * -(-n2r // DENSE_M_TILE) * (bp // ni)
+    return DensePlan(DENSE_M_TILE, ni, bp, fp, ld, split, stretches, items,
+                     min(items, capacity))
 
 
 def drnmf_scan_dense(x, step_mask, h0, u1, uk, s_stack, w_stack, b_stack):
@@ -340,9 +377,12 @@ def drnmf_scan_dense(x, step_mask, h0, u1, uk, s_stack, w_stack, b_stack):
     (B, T, 2r) f32; masked steps hold the carry.
 
     On the card the kernel needs a device with cooperative launch and room
-    for one resident block; the wrapper raises otherwise.  It allocates the
-    kernel's scratch: x with the batch innermost and padded to the row tile
-    (T, F, Bp), and four (2r, Bp) activation planes.
+    for one resident block; the wrapper raises otherwise, and with the
+    shapes and plan on any launch error.  It allocates the kernel's scratch
+    (``dense_scan_plan`` says how it is cut): x batch-major with rows of Fp
+    floats (T, Bp, Fp), the carry and hidden planes (4, Bp, ld), zero past
+    the batch, and the stretch partials (stretches, Bp, ld); where 2r is
+    not a multiple of 4 it also pads the weights' rows to ld floats.
     """
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, F), got {tuple(x.shape)}")
@@ -376,30 +416,32 @@ def drnmf_scan_dense(x, step_mask, h0, u1, uk, s_stack, w_stack, b_stack):
     lib = _dense_library()
     shapes = f"(B={bsz}, T={t_len}, F={f}, 2r={n2r}, K={k_layers})"
     with torch.cuda.device(dev):
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        tm, tn = dense_scan_tiles(bsz, n2r, n_sm)
-        capacity = lib.drnmf_scan_dense_capacity(tm, tn)
+        capacity = lib.drnmf_scan_dense_capacity(dense_batch_tile(bsz))
         if capacity < 1:
             why = ("the device has no cooperative launch, which orders the "
-                   "layers across blocks" if capacity == 0 else
+                   "phases across blocks" if capacity == 0 else
                    lib.drnmf_cuda_error_string(-capacity).decode())
             raise RuntimeError(f"drnmf_scan_dense cannot run here: {why} "
                                f"{shapes}")
-        bp = -(-bsz // tm) * tm
-        x_t = x.new_zeros((t_len, f, bp))
-        x_t[:, :, :bsz] = x.permute(1, 2, 0)
-        state = x.new_zeros((4, n2r, bp))
-        state[0, :, :bsz] = h0.T
-        grid = min((bp // tm) * -(-n2r // tn), capacity)
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        plan = dense_scan_plan(bsz, f, n2r, capacity)
+        x_t = x.new_zeros((t_len, plan.bp, plan.fp))
+        x_t[:, :bsz, :f] = x.transpose(0, 1)
+        state = x.new_zeros((4, plan.bp, plan.ld))
+        state[0, :bsz, :n2r] = h0
+        part = x.new_empty((plan.stretches, plan.bp, plan.ld))
+        weights = (u1, uk, s_stack, w_stack)
+        if plan.ld != n2r:  # rows of whole 16-byte copies, zero-padded
+            weights = tuple(torch.nn.functional.pad(a, (0, plan.ld - n2r))
+                            for a in weights)
         err = lib.drnmf_scan_dense(
-            x_t.data_ptr(), step_mask.data_ptr(), u1.data_ptr(),
-            uk.data_ptr(), s_stack.data_ptr(), w_stack.data_ptr(),
-            b_stack.data_ptr(), state.data_ptr(), out.data_ptr(), bsz, bp,
-            t_len, f, n2r, k_layers, tm, tn, grid, stream)
+            x_t.data_ptr(), step_mask.data_ptr(),
+            *(a.data_ptr() for a in weights), b_stack.data_ptr(),
+            state.data_ptr(), part.data_ptr(), out.data_ptr(), bsz, plan.bp,
+            t_len, f, plan.fp, n2r, plan.ld, k_layers, plan.ni, plan.split,
+            plan.grid, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.drnmf_cuda_error_string(err).decode()
         raise RuntimeError(f"drnmf_scan_dense launch failed: {msg} {shapes}, "
-                           f"tile {tm}x{tn}, grid {grid}")
+                           f"{plan}")
     LAUNCHES["dense"] += 1
     return out

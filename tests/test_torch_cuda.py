@@ -11,7 +11,9 @@ Tolerance rtol 1e-4 / atol 1e-5 on hidden states: f32 on both sides, the
 kernel summing the thin products in another order than cuBLAS.  B4/B5:
 rtol 1e-4 of each output's largest entry (f32 on both sides, sums over up
 to 4,099 frames in another order).  B3: operands drawn so that every term
-moves the output; rtol 1e-4 / atol 1e-5 as B1.  B2 against B1: rtol 1e-4 /
+moves the output; rtol 1e-4 / atol 1e-5 as B1 (three TF32 products a term,
+the tensor cores' sums promoted to f32 every 128 terms: f32-class, summed
+in another order than cuBLAS).  B2 against B1: rtol 1e-4 /
 atol 1e-5 (they sum in different orders); a repeat of B1 or B3 is
 bit-equal.  Each test walks its cases and names them in a failure
 message.
@@ -123,15 +125,21 @@ def _row_bits_do_not_depend_on_the_batch(device):
         assert torch.equal(alone, full[row:row + 1]), row
 
 
-def _refused_launch_raises(device):
+def _refused_launch_raises(device, dense=False):
     """A launch the gate refuses (a device without cooperative launch, or
     an error from the launch itself) raises with the shapes, counts no
-    launch and never runs the plain version."""
-    cfg, params, rng = _model(1, 9, 8, 3, device)
-    x = torch.from_numpy(rng.uniform(0, 1, (3, 5, 9)).astype(np.float32))
-    x = x.to(device)
-    args = drnmf.factored_scan_operands(
-        params, cfg, x, drnmf.step_mask_from_input(x, cfg.mask_value))
+    launch and never runs the plain version: B1, or B3 when ``dense``."""
+    if dense:
+        args = _dense_args(np.random.default_rng(1), 3, 5, 9, 8, 3, device)
+        name, library = "drnmf_scan_dense", "_dense_library"
+    else:
+        cfg, params, rng = _model(1, 9, 8, 3, device)
+        x = torch.from_numpy(rng.uniform(0, 1, (3, 5, 9)).astype(np.float32))
+        x = x.to(device)
+        args = drnmf.factored_scan_operands(
+            params, cfg, x, drnmf.step_mask_from_input(x, cfg.mask_value))
+        name, library = "drnmf_scan_factored", "_library"
+    wrapper = getattr(drnmf_scan, name)
 
     class Refusing:
         def __init__(self, lib, name, code):
@@ -142,27 +150,27 @@ def _refused_launch_raises(device):
                 return lambda *a: self.code
             return getattr(self.lib, name)
 
-    real, plain = (drnmf_scan._library,
-                   drnmf_scan.drnmf_scan_factored_reference)
+    real = getattr(drnmf_scan, library)
+    plain = getattr(drnmf_scan, name + "_reference")
 
     def must_not_run(*a):
         raise AssertionError("the plain version ran for a CUDA tensor")
 
-    drnmf_scan.drnmf_scan_factored_reference = must_not_run
+    setattr(drnmf_scan, name + "_reference", must_not_run)
     try:
         for entry, code, match in (
-                ("drnmf_scan_factored_capacity", 0, "no cooperative launch"),
-                ("drnmf_scan_factored", 9, "B=3, T=5, F=9, 2r=16, K=3")):
+                (name + "_capacity", 0, "no cooperative launch"),
+                (name, 9, "B=3, T=5, F=9, 2r=16, K=3")):
             refusing = Refusing(real(), entry, code)
-            drnmf_scan._library = lambda: refusing
+            setattr(drnmf_scan, library, lambda: refusing)
             before = dict(drnmf_scan.LAUNCHES)
             with pytest.raises(RuntimeError, match=match):
-                drnmf_scan.drnmf_scan_factored(*args)
+                wrapper(*args)
             assert drnmf_scan.LAUNCHES == before, entry
-            drnmf_scan._library = real
+            setattr(drnmf_scan, library, real)
     finally:
-        drnmf_scan._library = real
-        drnmf_scan.drnmf_scan_factored_reference = plain
+        setattr(drnmf_scan, library, real)
+        setattr(drnmf_scan, name + "_reference", plain)
 
 
 def _wrapper_rejects_malformed_operands(device):
@@ -232,16 +240,21 @@ def _other_configs_run_plain_loop(device):
                                        err_msg=str(overrides), **TOL)
 
 
-DENSE_SHAPES = [  # (B, T, F, r)
+DENSE_SHAPES = [  # (B, T, F, r); B3's batch tile after the #
     (1, 1, 9, 8),
     (3, 11, 9, 8),  # ragged everywhere: F=9, 2r=16, B=3, T=11
     (2, 9, 24, 4),
-    (5, 7, 33, 7),  # odd 2r = 14
-    (17, 5, 65, 50),  # 32-row tile
-    (33, 4, 129, 64),  # 64-row tile, one padded row tile
+    (5, 7, 33, 7),  # odd 2r = 14: the weights' rows padded to 16
+    (17, 5, 65, 50),  # # 32, 15 rows short
+    (33, 4, 129, 64),  # # 64, 31 rows short
     (64, 3, 257, 100),
-    (130, 2, 257, 200),  # three row tiles, the last nearly empty
-    (2, 3, 257, 1000),  # flagship widths
+    (130, 2, 257, 200),  # three batch tiles, the last 2 rows wide
+    (1, 3, 257, 1000),  # flagship widths: one stream, # 8
+    (2, 3, 257, 1000),
+    (12, 2, 257, 1000),  # # 16
+    (17, 2, 257, 1000),  # # 32
+    (64, 2, 257, 1000),  # the 64-stream step, # 64
+    (100, 2, 257, 1000),  # the last tile 28 rows short
     (256, 2, 257, 1000),  # flagship widths and batch
 ]
 
@@ -274,8 +287,8 @@ def _dense_kernel_matches_plain_version(device):
     rng = np.random.default_rng(6)
     for shape in DENSE_SHAPES:
         for K in (1, 2, 3, 5):
-            if K == 5 and shape[3] == 1000 and shape[0] > 2:
-                continue  # 106 MB of weights: once is enough
+            if K == 5 and shape[3] == 1000 and shape[0] not in (1, 64):
+                continue  # 106 MB of weights: at the online paths' batches
             case = "B%d_T%d_F%d_r%d" % shape + f" K={K}"
             args = _dense_args(rng, *shape, K, device)
             before = dict(drnmf_scan.LAUNCHES)
@@ -390,11 +403,13 @@ def _dense_model_and_streaming_match_cpu(device):
 
 @pytest.mark.cuda
 def test_dense_and_streaming_on_card(cuda):
-    """B3 against its plain version over a grid of shapes (every tile
-    size, ragged edges, K = 1 with the dummy S, the flagship widths), bit
-    for bit reproducible; the wrapper's checks; a dense-U and a frozen-U
-    model through the batch and the streaming enhancers against the CPU."""
+    """B3 against its plain version over a grid of shapes (every batch
+    tile, ragged edges, K = 1 with the dummy S, odd 2r, the flagship widths
+    at 1, 2, 64 and 256 rows), bit for bit reproducible; the wrapper's
+    checks and a refused launch; a dense-U and a frozen-U model through the
+    batch and the streaming enhancers against the CPU."""
     _dense_kernel_matches_plain_version(cuda)
+    _refused_launch_raises(cuda, dense=True)
     _dense_model_and_streaming_match_cpu(cuda)
 
 

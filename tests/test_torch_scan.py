@@ -4,8 +4,9 @@
 ``drnmf_scan_pallas``, run in interpret mode, with inputs built as
 tests/test_pallas_kernels.py builds them.
 
-Tolerance rtol 1e-5 / atol 1e-6 (B1, B3, and B1's order of arithmetic:
-its back-projection split over the 2r axis) and rtol 1e-6 / atol 1e-6 (B2,
+Tolerance rtol 1e-5 / atol 1e-6 (B1, B3, and the kernels' orders of
+arithmetic: B1's back-projection split over the 2r axis, B3's contraction
+cut into fixed stretches) and rtol 1e-6 / atol 1e-6 (B2,
 as the JAX test of the interleaved kernel): f32 on both sides, different
 summation order in the products.  B3's plain version against the JAX
 model's XLA scan: rtol 1e-4 / atol 1e-5, as the JAX test holds its Pallas
@@ -271,6 +272,65 @@ def test_dense_reference_matches_pallas_dense_and_xla(rng, K):
                 assert moved.max() > 1e-3, (case, drop)
 
 
+def _dense_split_order_scan(x, step_mask, h0, u1, uk, s_stack, w_stack,
+                            b_stack, split):
+    """Kernel B3's order of arithmetic in plain PyTorch: each layer's
+    contraction [h | hid | x_t] against [U_k ; S_{k-1} ; W_k] (no hid at
+    layer 0), every segment zero-padded to a multiple of 4 depths, taken as
+    one axis and cut into stretches of ``split`` depths; the stretches'
+    partials added in order, then the bias, then relu."""
+    n2r, f = h0.shape[-1], x.shape[-1]
+    ld, fp = -(-n2r // 4) * 4, -(-f // 4) * 4
+
+    def depth_pad(a, n, dim):  # zeros after the real depths
+        pad = [0, 0] * (a.dim() - 1 - dim % a.dim()) + [0, n - a.shape[dim]]
+        return torch.nn.functional.pad(a, pad)
+
+    h, outs = h0, []
+    for t in range(x.shape[1]):
+        x_t = depth_pad(x[:, t], fp, -1)
+        hidden = None
+        for k in range(w_stack.shape[0]):
+            acts = [depth_pad(h, ld, -1)]
+            wts = [depth_pad(u1 if k == 0 else uk, ld, 0)]
+            if k > 0:
+                acts.append(depth_pad(hidden, ld, -1))
+                wts.append(depth_pad(s_stack[k - 1], ld, 0))
+            acts = torch.cat(acts + [x_t], dim=1)
+            wts = torch.cat(wts + [depth_pad(w_stack[k], fp, 0)], dim=0)
+            parts = [acts[:, v:v + split] @ wts[v:v + split]
+                     for v in range(0, acts.shape[1], split)]
+            pre = parts[0]
+            for part in parts[1:]:
+                pre = pre + part
+            hidden = torch.relu(pre + b_stack[k])
+        h = torch.where(step_mask[:, t, None], hidden, h)
+        outs.append(h)
+    return torch.stack(outs, dim=1)
+
+
+def test_dense_split_order_matches_pallas_dense(rng):
+    """B3's fixed stretches compute the TPU kernel's function: at L = 8
+    over the shapes of the dense reference test (4 to 7 stretches a layer,
+    some across a segment's end) and K = 1, 2, 3, and at the plan's own L
+    with 2r > 2L (8 stretches, L = 320 at 2r = 1200)."""
+    cases = [(shape + (K,), init_form, 8)
+             for shape, init_form in (((2, 9, 24, 4), False),
+                                      ((3, 11, 9, 8), False),
+                                      ((2, 11, 16, 4), True))
+             for K in (1, 2, 3)]
+    big = tscan.dense_scan_plan(2, 33, 1200, 264)
+    assert 1200 > 2 * big.split and big.stretches == tscan.DENSE_STRETCHES
+    # U from the initialised model: the scaled draw needs 2r < 1000
+    cases.append(((2, 3, 33, 600, 2), True, big.split))
+    for shape, init_form, split in cases:
+        case = "B%d_T%d_F%d_r%d_K%d" % shape + f" L={split}"
+        args, _, _ = _dense_operands(rng, *shape, init_form=init_form)
+        ref = np.asarray(drnmf_scan_pallas(*args, interpret=True))
+        out = _dense_split_order_scan(*_to_torch(args), split).numpy()
+        np.testing.assert_allclose(out, ref, err_msg=case, **TOL)
+
+
 def test_dense_wrapper_rejects_malformed_and_picks_tiles(rng):
     good = _to_torch(_dense_operands(rng, 3, 5, 9, 8, 3)[0])
     for bad in ("dtype", "contiguity", "s_shape", "mask_dtype", "x_rank",
@@ -291,12 +351,51 @@ def test_dense_wrapper_rejects_malformed_and_picks_tiles(rng):
         with pytest.raises((TypeError, ValueError)):
             tscan.drnmf_scan_dense(*args)
 
-    # the tile rule: rows cover the batch up to 64; a small batch takes
-    # narrow column tiles so that the weight reads spread over the card
-    assert tscan.dense_scan_tiles(256, 2000, 132) == (64, 64)
-    assert tscan.dense_scan_tiles(64, 2000, 132) == (64, 16)
-    assert tscan.dense_scan_tiles(1, 2000, 132) == (16, 16)
-    assert tscan.dense_scan_tiles(3, 16, 132) == (16, 16)
-    for bsz in (1, 17, 33, 100, 1000):
-        tm, tn = tscan.dense_scan_tiles(bsz, 2000, 132)
-        assert tm in tscan.DENSE_TILES and tn in tscan.DENSE_TILES
+    # B3's plan: the items, mapped as the kernel maps them, cover every
+    # (stretch, row of 2r, batch column) once; the stretches cover a
+    # layer's contraction axis [h | hid | x_t] once; L, the stretch count
+    # and the padded widths depend on (F, 2r) alone; Bp and Fp are
+    # multiples of the batch tile and of 4
+    for f, n2r in ((9, 16), (257, 2000), (33, 14)):
+        fixed = set()
+        for bsz in (1, 3, 64, 256, 257):
+            for capacity in (264, 1, 24):
+                case = f"F={f} 2r={n2r} B={bsz} cap={capacity}"
+                plan = tscan.dense_scan_plan(bsz, f, n2r, capacity)
+                fixed.add((plan.m_tile, plan.split, plan.stretches, plan.fp,
+                           plan.ld))
+                assert plan.ni in tscan.DENSE_BATCH_TILES, case
+                assert plan.bp % plan.ni == 0 and plan.bp % 4 == 0, case
+                assert bsz <= plan.bp < bsz + plan.ni, case
+                assert plan.fp % 4 == 0 and f <= plan.fp < f + 4, case
+                assert plan.ld % 4 == 0 and n2r <= plan.ld < n2r + 4, case
+                assert plan.split % 16 == 0, case
+                assert plan.stretches <= tscan.DENSE_STRETCHES, case
+                assert 1 <= plan.grid <= min(capacity, plan.items), case
+                for depths in (plan.ld + plan.fp, 2 * plan.ld + plan.fp):
+                    cover = np.zeros(depths, int)
+                    for v in range(0, depths, plan.split):
+                        cover[v:v + plan.split] += 1
+                    assert (cover == 1).all(), case
+                assert plan.stretches == -(-(2 * plan.ld + plan.fp)
+                                           // plan.split), case
+                # a later layer's products: item -> (stretch, row tile,
+                # batch tile), the batch tile fastest
+                mt = -(-n2r // plan.m_tile)
+                bt = plan.bp // plan.ni
+                assert plan.items == plan.stretches * mt * bt, case
+                hits = np.zeros((plan.stretches, mt * plan.m_tile, plan.bp),
+                                np.uint8)
+                for item in range(plan.items):
+                    col0 = item % bt * plan.ni
+                    row0 = item // bt % mt * plan.m_tile
+                    s = item // (bt * mt)
+                    hits[s, row0:row0 + plan.m_tile, col0:col0 + plan.ni] += 1
+                assert (hits == 1).all(), case
+        assert len(fixed) == 1, (f, n2r, fixed)
+    # the paths' shapes on an H100 (132 SMs, two blocks an SM): one row
+    # and 64 rows a later layer of 128 items, one an SM; 256 rows two
+    # rounds of the resident blocks
+    for bsz, ni, items in ((1, 8, 128), (64, 64, 128), (256, 64, 512)):
+        plan = tscan.dense_scan_plan(bsz, 257, 2000, 264)
+        assert (plan.ni, plan.items) == (ni, items), (bsz, plan)
