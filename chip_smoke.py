@@ -38,14 +38,19 @@ Phases, each printing one JSON line:
 6. stages  -- one warm ``enhance_signals`` call of 256 x 8 s, stage by
               stage (its ``lap`` hook, a synchronisation at each stage).
    times   -- B1, B2 and their plain version at the main path's shapes
-              (B=256, T=1021) and at the streaming shape (64 x 16), B1 at
-              one row (1 x 1021), and the end-to-end real-time factor.  For
-              B1 also: its plan (tiles, splits, grid) and grid syncs a call
-              at each shape, ms a step, useful TFLOP/s and the share of its
-              bound (fails above 100%), the cost of one grid sync at each
-              shape's grid (a kernel of bare syncs), a bit-equal repeat, and
-              rows 0-63 as a 64-row call and rows 0, 63, 255 alone equal to
-              the same rows of the 256-row call bit for bit.
+              (B=256, T=1021) and at the streaming shape (64 x 16), B1 and
+              B2 at one row (1 x 1021), and the end-to-end real-time factor.
+              For each of B1 and B2: its plan and grid syncs a call at each
+              shape, ms a step, useful TFLOP/s, its bound (one TF32 pass or
+              the bytes, ``factored_bounds``) beside what three TF32 passes
+              and the f32 CUDA cores could reach and the share of each
+              (fails above 100% of the first, for B2 also of the second),
+              and the step split by layer; B1's cost of one grid sync at
+              each shape's grid (a kernel of bare syncs).  A bit-equal
+              repeat of each; rows 0-63 as a 64-row call and rows 0, 63,
+              255 alone equal to the same rows of the 256-row call bit for
+              bit (B1) or within the tolerance, bit equality reported (B2);
+              B2 against B1 at every shape.
 7. dense_main -- a dense-U flagship model (the flagship parameters with
               log_U1/log_Uk perturbed from a seed, so the rank-one fold does
               not hold; U trainable in its YAML) through ``enhance_wav`` and
@@ -290,25 +295,48 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def b1_flops(args):
-    """Useful flops of one B1 call on these inputs: 2*F*2r*(2K-1) per valid
-    (unmasked) row-step."""
+def factored_flops(args):
+    """Useful flops of one B1 or B2 call on these inputs: 2*F*2r*(2K-1) per
+    valid (unmasked) row-step."""
     f, n2r, k_layers = args[0].shape[2], args[2].shape[-1], args[7].shape[0]
     return 2 * f * n2r * (2 * k_layers - 1) * int(args[1].sum().item())
 
 
-def b1_bound(args):
-    """(bound ms, 'bytes' or 'operations') of one B1 call on these inputs:
-    its useful flops over the f32 CUDA-core peak, against each input read
-    once and the output written once over the HBM rate."""
+def factored_bounds(args):
+    """Bounds of one B1 or B2 call on these inputs (they compute the same
+    function), in ``b3_bounds``' form.  The bytes: each input the function
+    reads (K == 1 reads no dkT) once and the output once; the weight stack
+    fits the L2, so no step reads it from HBM again.  ``bound_ms`` /
+    ``bound_by``: the larger of one dense TF32 tensor-core pass and the
+    bytes; ``bound_3xtf32_ms``: with the three TF32 passes a term that
+    B2's f32-class accuracy costs; ``bound_f32_cuda_cores_ms``: with the
+    f32 rate of the CUDA cores, the bound of B1's f32 arithmetic."""
     bsz, t_len, _ = args[0].shape
-    n2r = args[2].shape[-1]
-    flops = b1_flops(args)
-    nbytes = sum(a.numel() * a.element_size() for a in args)
+    n2r, k_layers = args[2].shape[-1], args[7].shape[0]
+    flops = factored_flops(args)
+    read = [a for i, a in enumerate(args) if k_layers > 1 or i != 6]
+    nbytes = sum(a.numel() * a.element_size() for a in read)
     nbytes += bsz * t_len * n2r * 4  # output
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_TF32_FLOPS
+    return {"flops": flops, "bytes": nbytes,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_3xtf32_ms": 1e3 * max(3 * t_ops, t_bytes),
+            "bound_f32_cuda_cores_ms": 1e3 * max(flops / PEAK_F32_FLOPS,
+                                                 t_bytes)}
+
+
+BOUND_KEYS = ("bound_ms", "bound_by", "bound_3xtf32_ms",
+              "bound_f32_cuda_cores_ms")
+
+
+def shares(bounds, ms):
+    """The share of each bound that ``ms`` a call reaches."""
+    return {"share_of_bound": bounds["bound_ms"] / ms,
+            "share_of_3xtf32_bound": bounds["bound_3xtf32_ms"] / ms,
+            "share_of_f32_cuda_cores_bound":
+                bounds["bound_f32_cuda_cores_ms"] / ms}
 
 
 def b3_flops(args):
@@ -393,14 +421,33 @@ def b3_plan_and_rates(args, ms):
             "ms_per_step_each_later_layer": (k2 - k1) / t_len}
 
 
+def factored_layer_split(args, **kwargs):
+    """ms a step of B1 (B2 with ``interleave=True``) on these inputs cut to
+    the first layer and to two layers, whose difference is one later
+    layer (BP, R, P and their three syncs)."""
+    from drnmf_torch.ops import drnmf_scan
+
+    def first_layers(k):
+        cut = list(args)
+        cut[6] = args[6][:max(1, k - 1)]  # dkT (a dummy layer when k == 1)
+        cut[7], cut[8] = args[7][:k], args[8][:k]  # dka, b
+        return cut
+
+    t_len = args[0].shape[1]
+    reps = 2 if t_len > 100 else 20
+    k1, k2 = (cuda_ms(lambda a=first_layers(k): drnmf_scan
+                      .drnmf_scan_factored(*a, **kwargs), reps)
+              for k in (1, 2))
+    return {"ms_per_step_first_layer": k1 / t_len,
+            "ms_per_step_each_later_layer": (k2 - k1) / t_len}
+
+
 def b1_plan_and_rates(args, ms):
     """B1's plan on these inputs, its grid syncs a call, ms a step, useful
-    TFLOP/s and share of its bound at ``ms`` a call; the time of one grid
-    sync at its grid (a cooperative kernel of bare syncs, as many as the
-    call makes, timed after a warm-up); and the split of a step by layer:
-    B1 on the same inputs cut to the first layer (P0 and its sync) and to
-    two layers, whose difference is one later layer (BP, R, P and their
-    three syncs)."""
+    TFLOP/s, its bounds and the share of each at ``ms`` a call; the time
+    of one grid sync at its grid (a cooperative kernel of bare syncs, as
+    many as the call makes, timed after a warm-up); and the split of a
+    step by layer (``factored_layer_split``)."""
     import torch
     from drnmf_torch.ops import drnmf_scan
 
@@ -416,26 +463,43 @@ def b1_plan_and_rates(args, ms):
     sync_ms = cuda_ms(lambda: codes.append(
         lib.drnmf_grid_sync_probe(syncs, plan.grid, stream)), 3)
     check(not any(codes), f"the grid-sync probe failed: {codes}")
-    bound_ms, bound_by = b1_bound(args)
-
-    def first_layers(k):
-        cut = list(args)
-        cut[6] = args[6][:max(1, k - 1)]  # dkT (a dummy layer when k == 1)
-        cut[7], cut[8] = args[7][:k], args[8][:k]  # dka, b
-        return cut
-
-    reps = 2 if t_len > 100 else 20
-    k1, k2 = (cuda_ms(lambda a=first_layers(k): drnmf_scan
-                      .drnmf_scan_factored(*a), reps) for k in (1, 2))
+    bounds = factored_bounds(args)
     return {"plan": plan._asdict(), "syncs_per_call": syncs, "ms": ms,
             "ms_per_step": ms / t_len,
-            "useful_tflops": b1_flops(args) / ms / 1e9,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "share_of_bound": bound_ms / ms,
+            "useful_tflops": bounds["flops"] / ms / 1e9,
+            **{key: bounds[key] for key in BOUND_KEYS}, **shares(bounds, ms),
             "us_per_grid_sync": 1e3 * sync_ms / syncs,
             "grid_syncs_ms_per_call": sync_ms,
-            "ms_per_step_first_layer": k1 / t_len,
-            "ms_per_step_each_later_layer": (k2 - k1) / t_len}
+            **factored_layer_split(args)}
+
+
+def b2_plan(bsz, f, n2r):
+    """B2's plan for this batch and width on this card."""
+    import torch
+    from drnmf_torch.ops import drnmf_scan
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    capacity = drnmf_scan._interleaved_library(
+    ).drnmf_scan_factored_interleaved_capacity(
+        drnmf_scan.interleaved_batch_tile(bsz, n2r, n_sm))
+    return drnmf_scan.interleaved_scan_plan(bsz, f, n2r, n_sm, capacity)
+
+
+def b2_plan_and_rates(args, ms):
+    """B2's plan on these inputs, its grid syncs a call (one before the
+    scan; P_0, then BP, R and P a later layer), ms a step, useful
+    TFLOP/s, its bounds and the share of each at ``ms`` a call, and the
+    split of a step by layer (``factored_layer_split``)."""
+    bsz, t_len, f = args[0].shape
+    n2r, k_layers = args[2].shape[-1], args[7].shape[0]
+    plan = b2_plan(bsz, f, n2r)
+    per_step = 1 + 3 * (k_layers - 1)
+    bounds = factored_bounds(args)
+    return {"plan": plan._asdict(), "syncs_per_call": 1 + t_len * per_step,
+            "ms": ms, "ms_per_step": ms / t_len,
+            "useful_tflops": bounds["flops"] / ms / 1e9,
+            **{key: bounds[key] for key in BOUND_KEYS}, **shares(bounds, ms),
+            **factored_layer_split(args, interleave=True)}
 
 
 def synth_signals(rng, n, seconds):
@@ -1306,15 +1370,31 @@ def main():
     check(ok, "B1 disagrees with its plain version at the main path's shape")
     check(b2_ok and compare(inter, out)[2],
           "B2 disagrees with its plain version or B1 at the main path's shape")
-    del inter, ref
+    del ref
     # fixed summation order: a repeat is bit-equal, and a row's bits do not
-    # depend on the rows it runs with
+    # depend on the rows it runs with (B1); B2's sums run in the same order
+    # in any batch, whether the tensor cores give a row the same bits at
+    # another batch tile is read here (reported), within the tolerance held
     repeat_equal = bool(torch.equal(drnmf_scan.drnmf_scan_factored(*args),
                                     out))
+    b2_repeat_equal = bool(torch.equal(drnmf_scan.drnmf_scan_factored(
+        *args, interleave=True), inter))
+    check(b2_repeat_equal, "a repeat of B2 at the main path's shape differs")
 
     def rows(sel):
         return [a[sel].contiguous() if i < 3 else a
                 for i, a in enumerate(args)]
+
+    b2_rows = {}
+    for label, sel in [("0-63", slice(0, STREAMS))] + [
+            (str(r), slice(r, r + 1)) for r in (0, STREAMS - 1,
+                                                 len(batch) - 1)]:
+        alone = drnmf_scan.drnmf_scan_factored(*rows(sel), interleave=True)
+        rows_err, _, rows_ok = compare(alone, inter[sel])
+        b2_rows[label] = {"bit_equal": bool(torch.equal(alone, inter[sel])),
+                          "max_abs_diff": rows_err, "within_tol": rows_ok}
+        check(rows_ok, f"B2's rows {label} alone disagree with the batch")
+    del inter, alone
 
     row_bits_equal = bool(torch.equal(
         drnmf_scan.drnmf_scan_factored(*rows(slice(0, STREAMS))),
@@ -1335,7 +1415,7 @@ def main():
     ms, b2_ms = (b1_a + b1_b) / 2, (b2_a + b2_b) / 2
     plain_ms = cuda_ms(
         lambda: drnmf_scan.drnmf_scan_factored_reference(*args), 3)
-    bound_ms, bound_by = b1_bound(args)
+    bounds = factored_bounds(args)
     stream_args = scan_operands(config, params, mag[:STREAMS, :MULTI_BLOCK]
                                 .contiguous())
     stream_ms = {
@@ -1344,25 +1424,44 @@ def main():
             *stream_args, interleave=True), 20),
         "plain": cuda_ms(lambda: drnmf_scan.drnmf_scan_factored_reference(
             *stream_args), 5)}
-    stream_bound = b1_bound(stream_args)
+    stream_bounds = factored_bounds(stream_args)
     one_args = scan_operands(config, params, mag[:1].contiguous())
     one_ms = cuda_ms(lambda: drnmf_scan.drnmf_scan_factored(*one_args), 3)
-    b1 = {}
-    for key, a, b1_ms in (("256x1021", args, ms),
-                          ("64x16", stream_args, stream_ms["b1"]),
-                          ("1x1021", one_args, one_ms)):
+    one_b2_ms = cuda_ms(lambda: drnmf_scan.drnmf_scan_factored(
+        *one_args, interleave=True), 3)
+    # B2 against B1 at the smaller shapes
+    b2_vs_b1_small = {}
+    for key, a in (("64x16", stream_args), ("1x1021", one_args)):
+        b2_small_err, _, b2_small_ok = compare(
+            drnmf_scan.drnmf_scan_factored(*a, interleave=True),
+            drnmf_scan.drnmf_scan_factored(*a))
+        b2_vs_b1_small[key] = {"max_abs_diff": b2_small_err,
+                               "within_tol": b2_small_ok}
+        check(b2_small_ok, f"B2 disagrees with B1 at {key}")
+    b1, b2 = {}, {}
+    for key, a, b1_ms, b2_call_ms in (
+            ("256x1021", args, ms, b2_ms),
+            ("64x16", stream_args, stream_ms["b1"], stream_ms["b2"]),
+            ("1x1021", one_args, one_ms, one_b2_ms)):
         b1[key] = b1_plan_and_rates(a, b1_ms)
+        b2[key] = b2_plan_and_rates(a, b2_call_ms)
     check(all(v["share_of_bound"] <= 1.0 for v in b1.values()),
           f"B1 reads faster than its bound: {b1}")
+    # the f32 CUDA-core figure is no bound of a tensor-core kernel: only
+    # the other two may not be beaten
+    check(all(v["share_of_bound"] <= 1.0 and v["share_of_3xtf32_bound"] <= 1.0
+              for v in b2.values()), f"B2 reads faster than its bound: {b2}")
     log("times", card=card, shape=list(mag.shape), b1_ms=ms, b2_ms=b2_ms,
         b1_ms_runs=[b1_a, b1_b], b2_ms_runs=[b2_a, b2_b], plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
-        max_rel_err=rel, b2_max_abs_err=b2_err,
+        **{key: bounds[key] for key in BOUND_KEYS}, max_abs_err=err,
+        max_rel_err=rel, b2_max_abs_err=b2_err, b2_max_rel_err=b2_rel,
         b2_max_abs_diff_to_b1=b2_vs_b1, b1_repeat_bit_equal=repeat_equal,
-        b1_row_bits_equal=row_bits_equal,
+        b1_row_bits_equal=row_bits_equal, b2_repeat_bit_equal=b2_repeat_equal,
+        b2_rows_alone=b2_rows, b2_vs_b1_small=b2_vs_b1_small,
         streaming_shape=[STREAMS, MULTI_BLOCK], streaming_ms=stream_ms,
-        streaming_bound_ms=stream_bound[0], streaming_bound_by=stream_bound[1],
-        one_row_ms=one_ms, b1=b1, rtf=rtf)
+        streaming_bound_ms=stream_bounds["bound_ms"],
+        streaming_bound_by=stream_bounds["bound_by"],
+        one_row_ms=one_ms, one_row_b2_ms=one_b2_ms, b1=b1, b2=b2, rtf=rtf)
     del args, stream_args, one_args
 
     # 7. the dense-U route through the same entry points
@@ -1490,8 +1589,7 @@ def main():
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        **{key: bounds[key] for key in BOUND_KEYS},
         "library_ms": None,
     }, {
         "name": "drnmf_scan_factored_interleaved",
@@ -1503,8 +1601,7 @@ def main():
         "max_abs_err": b2_err,
         "ms": b2_ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        **{key: bounds[key] for key in BOUND_KEYS},
         "library_ms": None,
     }, {
         "name": "drnmf_scan_dense",

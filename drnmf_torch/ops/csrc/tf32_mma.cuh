@@ -1,5 +1,6 @@
 // PTX primitives of the error-compensated TF32 tensor-core mainloop shared
-// by kernels B3 (drnmf_scan_dense.cu) and B4/B5 (snmf_mu.cu): asynchronous
+// by kernels B2 (drnmf_scan_factored_interleaved.cu), B3
+// (drnmf_scan_dense.cu) and B4/B5 (snmf_mu.cu): asynchronous
 // copies, the TF32 head of a float, the wgmma fences, the m64nNk8 .tf32
 // instructions with A from registers at the widths the kernels use, and the
 // shared-memory layout and descriptor of a K-major B operand in the 64-byte
@@ -63,6 +64,13 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Waits until at most N of this warpgroup's committed wgmma groups are
+// still running (N = 0 is wgmma_wait).
+template <int N>
+__device__ __forceinline__ void wgmma_wait_group() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keeps a register operand of an asynchronous wgmma alive and unmoved up

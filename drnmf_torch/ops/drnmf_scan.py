@@ -4,10 +4,10 @@
   Replaces ``drnmf_tpu/ops/pallas/drnmf_scan.py::_kernel_factored`` (entry
   ``drnmf_scan_pallas_factored``).  CUDA C++ in
   ``csrc/drnmf_scan_factored.cu``.
-- B2, ``drnmf_scan_factored(..., interleave=True)``: the same function with
-  two independent groups of rows a block.  Replaces
-  ``_kernel_factored_interleaved``.  CUDA C++ in
-  ``csrc/drnmf_scan_factored_interleaved.cu``.
+- B2, ``drnmf_scan_factored(..., interleave=True)``: the same function
+  with the batch's two halves carried as two independent chains of
+  tensor-core products.  Replaces ``_kernel_factored_interleaved``.  CUDA
+  C++ in ``csrc/drnmf_scan_factored_interleaved.cu``.
 - B3, ``drnmf_scan_dense``: the recurrence with dense (2r, 2r) U and S
   matrices, for a model whose U trains or whose checkpoint breaks the
   fold's structure.  Replaces ``_kernel`` (entry ``drnmf_scan_pallas``).
@@ -17,17 +17,21 @@ All are built for ``sm_90a`` at first use (see ``build.py``).
 
 What bounds them on the card.  B1/B2: per batch row and step
 2·F·2r·(2K−1) flops against a weight stack (18.5 MB at the flagship) that
-fits the L2, so the f32 rate of the CUDA cores at a large batch, and the
-chain of dependent steps at a few rows.  B1 and B3 run the whole scan in
-one cooperative launch, each phase spread over persistent blocks with a
-grid synchronisation between phases.  B1: each half-layer one tiled f32
+fits the L2, so the f32 rate of the CUDA cores (B1) or of the tensor
+cores (B2) at a large batch, and the chain of dependent steps at a few
+rows.  All three run the whole scan in one cooperative launch, each
+phase spread over persistent blocks with a grid synchronisation between
+phases.  B1: each half-layer one tiled f32
 product whose output tiles go to the blocks, so each weight is read once
 per row tile and step; its back-projection ``hid @ dkT`` is split over
 fixed stretches of the 2r axis, summed in a phase of their own in a fixed
 order, so a few rows still fill the card (``factored_scan_plan``).  B2
-splits the batch instead: two groups of two rows a block, the carry in
-shared memory, every block streaming the whole weight stack from L2 at
-every step, which each SM's own load path binds.  B3: 2·(2r)²·(2K−1) +
+runs B1's phases with every product on the tensor cores, as B3 does
+(below): the weights are the A operand, 2r or F on the instruction's M
+axis, the batch on its N axis; the first ceil(B/2) rows and the rest are
+two chains whose products a work item issues in turn, waiting only for
+the older group, so one chain's products run while the other's issue
+(``interleaved_scan_plan``).  B3: 2·(2r)²·(2K−1) +
 2·F·2r·K flops per row and step against a weight stack (106 MB at the
 flagship) that fits no cache, so operations at a large batch and the
 weight reads from HBM and the grid syncs at a few rows.  Each layer runs
@@ -38,10 +42,10 @@ axis) cut into fixed stretches whose partials a second phase adds in
 stretch order (``dense_scan_plan``).  The source notes in the ``.cu``
 files give the trade-offs.
 
-B1 and B3 sum every output in a fixed order and use no atomics: a repeat
-is bit-equal, and the order of a row's sums does not depend on the batch
-it runs in.  B2 sums in another order than B1, so the two agree within
-rounding.
+B1, B2 and B3 sum every output in a fixed order and use no atomics: a
+repeat is bit-equal, and the order of a row's sums does not depend on the
+batch it runs in.  B2 sums in another order than B1 (and on the tensor
+cores), so the two agree within rounding.
 
 Each wrapper launches its kernel for CUDA tensors or raises; for CPU
 tensors it runs the plain version beside it
@@ -77,6 +81,13 @@ FACTORED_GROUP = 16
 DENSE_M_TILE = 128
 DENSE_BATCH_TILES = (8, 16, 32, 64)
 DENSE_STRETCHES = 8
+# B2: rows of 2r or F a work item covers (the instruction's M axis, one
+# warpgroup), the batch tiles of each chain it is built for (N), and the
+# fixed stretches of its back-projection's contraction (2r = 2000 gives
+# L = 128)
+INTERLEAVED_M_TILE = 64
+INTERLEAVED_BATCH_TILES = (8, 16)
+INTERLEAVED_BP_STRETCHES = 16
 
 
 def _error_strings(lib):
@@ -102,9 +113,11 @@ def _library():
 def _interleaved_library():
     lib = build.load(INTERLEAVED_SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.drnmf_scan_factored_interleaved.argtypes = ([ptr] * 10 + [i32] * 5
+    lib.drnmf_scan_factored_interleaved.argtypes = ([ptr] * 15 + [i32] * 14
                                                     + [ptr])
     lib.drnmf_scan_factored_interleaved.restype = i32
+    lib.drnmf_scan_factored_interleaved_capacity.argtypes = [i32]
+    lib.drnmf_scan_factored_interleaved_capacity.restype = i32
     return _error_strings(lib)
 
 
@@ -192,6 +205,122 @@ def factored_scan_plan(bsz: int, f: int, n2r: int, n_sm: int,
                         -(-n2r // FACTORED_GROUP), bp, grid)
 
 
+class InterleavedPlan(NamedTuple):
+    """How B2 cuts its phases (``interleaved_scan_plan``)."""
+    mt: int  # rows of the weights' output axis an item covers (M)
+    ni: int  # columns of each chain an item covers (N)
+    half: int  # chain A's rows, ceil(B / 2); chain B has the rest
+    bpc: int  # each chain's rows padded to ni: the scratch has 2·bpc
+    fp: int  # F padded to a multiple of 4
+    ld: int  # 2r padded to a multiple of 4
+    split: int  # L: rows of 2r one back-projection stretch sums
+    splits: int  # S = ceil(2r / L)
+    groups: int  # G: partial rowsums a row, FACTORED_GROUP columns each
+    p_items: int  # work items of a projection
+    bp_items: int  # work items of a back-projection
+    grid: int  # blocks of the cooperative launch
+
+
+def interleaved_batch_tile(bsz: int, n2r: int, n_sm: int) -> int:
+    """B2's batch tile (columns of each chain) for this batch: of the built
+    tiles no wider than what covers a chain, the wider one whose
+    projection has as many items as the card has SMs, or as many as the
+    narrower gives where neither reaches that.  At 64 rows this gives 8:
+    128 items, where 16 would give 64."""
+    half = -(-bsz // 2)
+    widest = next((w for w in INTERLEAVED_BATCH_TILES if w >= half),
+                  INTERLEAVED_BATCH_TILES[-1])
+    tiles = [ni for ni in reversed(INTERLEAVED_BATCH_TILES) if ni <= widest]
+
+    def items(ni):
+        return -(-n2r // INTERLEAVED_M_TILE) * -(-half // ni)
+
+    target = min(n_sm, max(items(ni) for ni in tiles))
+    return next(ni for ni in tiles if items(ni) >= target)
+
+
+def interleaved_scan_plan(bsz: int, f: int, n2r: int, n_sm: int,
+                          capacity: int) -> InterleavedPlan:
+    """B2's cut for this batch and width on a card with ``n_sm`` SMs that
+    keeps ``capacity`` blocks of the batch tile's kernel resident.
+
+    Chain A takes rows [0, ceil(B/2)), chain B the rest; both are padded
+    to the same multiple of the batch tile, and an item covers the same
+    columns of each.  L (the smallest multiple of the kernel's 16-deep
+    stage that cuts 2r into INTERLEAVED_BP_STRETCHES), S and G depend on
+    (F, 2r) alone, so the order of a row's sums does not depend on the
+    batch or the grid; the batch tile (``interleaved_batch_tile``) only
+    keeps the SMs busy.  The grid is the larger phase's item count, at
+    most ``capacity``."""
+    mt, ni = INTERLEAVED_M_TILE, interleaved_batch_tile(bsz, n2r, n_sm)
+    half = -(-bsz // 2)
+    bpc = -(-half // ni) * ni
+    fp, ld = -(-f // 4) * 4, -(-n2r // 4) * 4
+    split = -(-n2r // (16 * INTERLEAVED_BP_STRETCHES)) * 16
+    splits = -(-n2r // split)
+    p_items = -(-n2r // mt) * (bpc // ni)
+    bp_items = splits * -(-fp // mt) * (bpc // ni)
+    return InterleavedPlan(mt, ni, half, bpc, fp, ld, split, splits,
+                           -(-n2r // FACTORED_GROUP), p_items, bp_items,
+                           min(max(p_items, bp_items), capacity))
+
+
+def _launch_interleaved(x, step_mask, h0, diag1, off1, c_uk, dkt_stack,
+                        dka_stack, b_stack, out, shapes):
+    """Kernel B2 on the card: its scratch (rows of chain A, then of chain
+    B, each padded to ``bpc``), zero-filled; raises on any refusal."""
+    bsz, t_len, f = x.shape
+    n2r, k_layers = h0.shape[-1], dka_stack.shape[0]
+    dev = x.device
+    lib = _interleaved_library()
+    with torch.cuda.device(dev):
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        capacity = lib.drnmf_scan_factored_interleaved_capacity(
+            interleaved_batch_tile(bsz, n2r, n_sm))
+        if capacity < 1:
+            why = ("the device has no cooperative launch, which orders the "
+                   "phases across blocks" if capacity == 0 else
+                   lib.drnmf_cuda_error_string(-capacity).decode())
+            raise RuntimeError(f"drnmf_scan_factored (interleaved) cannot "
+                               f"run here: {why} {shapes}")
+        plan = interleaved_scan_plan(bsz, f, n2r, n_sm, capacity)
+        half, bpc, fp, ld = plan.half, plan.bpc, plan.fp, plan.ld
+        rows = 2 * bpc
+
+        def by_chain(a, scratch):  # rows [0, half) then [half, B)
+            scratch[..., :half, :a.shape[-1]] = a[..., :half, :]
+            scratch[..., bpc:bpc + bsz - half, :a.shape[-1]] = a[..., half:, :]
+            return scratch
+
+        x_s = by_chain(x.transpose(0, 1), x.new_zeros((t_len, rows, fp)))
+        carry = x.new_zeros((2, rows, ld))
+        by_chain(h0, carry[0])
+        hid = x.new_zeros((2, rows, ld))
+        part = x.new_zeros((plan.splits, rows, fp))
+        resid = x.new_zeros((rows, fp))
+        rsp = x.new_zeros((2, plan.groups, rows))
+        rs = x.new_zeros((rows,))
+        # rows of whole 16-byte copies, zero-padded
+        dka = (dka_stack if ld == n2r else
+               torch.nn.functional.pad(dka_stack, (0, ld - n2r)))
+        dkt = (dkt_stack if fp == f else
+               torch.nn.functional.pad(dkt_stack, (0, fp - f)))
+        err = lib.drnmf_scan_factored_interleaved(
+            x_s.data_ptr(), step_mask.data_ptr(), diag1.data_ptr(),
+            off1.data_ptr(), c_uk.data_ptr(), dkt.data_ptr(), dka.data_ptr(),
+            b_stack.data_ptr(), carry.data_ptr(), hid.data_ptr(),
+            part.data_ptr(), resid.data_ptr(), rsp.data_ptr(), rs.data_ptr(),
+            out.data_ptr(), bsz, half, bpc, t_len, f, fp, n2r, ld, k_layers,
+            plan.ni, plan.split, plan.splits, plan.groups, plan.grid,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        msg = lib.drnmf_cuda_error_string(err).decode()
+        raise RuntimeError(f"drnmf_scan_factored (interleaved) launch "
+                           f"failed: {msg} {shapes}, {plan}")
+    LAUNCHES["interleaved"] += 1
+    return out
+
+
 def drnmf_scan_factored(x, step_mask, h0, diag1, off1, c_uk, dkt_stack,
                         dka_stack, b_stack, interleave: bool = False):
     """Folded + factored recurrence over the whole sequence.
@@ -201,16 +330,23 @@ def drnmf_scan_factored(x, step_mask, h0, diag1, off1, c_uk, dkt_stack,
     dkt_stack (K-1, 2r, F) = Dhat_k^T (a dummy (1, 2r, F) when K == 1);
     dka_stack (K, F, 2r) = Dhat_k/alph_k; b_stack (K, 2r).
     Returns the hidden states (B, T, 2r) f32; masked steps hold the carry.
-    ``interleave``: on the card, launch kernel B2 (two independent groups
-    of rows a block) instead of B1; the function computed is the same, for
-    any B, summed in another order.
+    ``interleave``: on the card, launch kernel B2 (the batch's halves as
+    two chains of tensor-core products) instead of B1; the function
+    computed is the same, for any B, summed in another order.
 
-    On the card B1 needs a device with cooperative launch; the wrapper
-    raises otherwise, and on any launch error.  It allocates the kernel's
-    scratch (``factored_scan_plan`` says how it is cut): x with the batch
+    On the card B1 and B2 need a device with cooperative launch; the
+    wrapper raises otherwise, and with the shapes and the plan on any
+    launch error.  It allocates the kernel's scratch.  B1
+    (``factored_scan_plan`` says how it is cut): x with the batch
     innermost and padded to the row tile (T, F, Bp), the carry and hidden
     planes (2, 2r, Bp) each, the split partials (S, F, Bp), the residual
-    (F, Bp) and the partial rowsums (2, G, Bp).
+    (F, Bp) and the partial rowsums (2, G, Bp).  B2
+    (``interleaved_scan_plan``): the rows of chain A, then of chain B,
+    each padded to bpc (R = 2·bpc rows), batch-major with rows of whole
+    16-byte copies: x (T, R, Fp), the carry and hidden planes (2, R, ld)
+    each, the back-projection partials (S, R, Fp), the residual (R, Fp),
+    the partial rowsums (2, G, R) and the rowsums (R); dkT padded to rows of Fp and
+    dka to rows of ld where F or 2r is not a multiple of 4.
     """
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, F), got {tuple(x.shape)}")
@@ -247,20 +383,8 @@ def drnmf_scan_factored(x, step_mask, h0, diag1, off1, c_uk, dkt_stack,
         return out
     shapes = f"(B={bsz}, T={t_len}, F={f}, 2r={n2r}, K={k_layers})"
     if interleave:
-        lib = _interleaved_library()
-        with torch.cuda.device(dev):
-            err = lib.drnmf_scan_factored_interleaved(
-                x.data_ptr(), step_mask.data_ptr(), h0.data_ptr(),
-                diag1.data_ptr(), off1.data_ptr(), c_uk.data_ptr(),
-                dkt_stack.data_ptr(), dka_stack.data_ptr(),
-                b_stack.data_ptr(), out.data_ptr(), bsz, t_len, f, n2r,
-                k_layers, torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            msg = lib.drnmf_cuda_error_string(err).decode()
-            raise RuntimeError(f"drnmf_scan_factored (interleaved) launch "
-                               f"failed: {msg} {shapes}")
-        LAUNCHES["interleaved"] += 1
-        return out
+        return _launch_interleaved(x, step_mask, h0, diag1, off1, c_uk,
+                                   dkt_stack, dka_stack, b_stack, out, shapes)
 
     lib = _library()
     with torch.cuda.device(dev):

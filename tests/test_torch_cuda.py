@@ -13,11 +13,13 @@ rtol 1e-4 of each output's largest entry (f32 on both sides, sums over up
 to 4,099 frames in another order).  B3: operands drawn so that every term
 moves the output; rtol 1e-4 / atol 1e-5 as B1 (three TF32 products a term,
 the tensor cores' sums promoted to f32 every 128 terms: f32-class, summed
-in another order than cuBLAS).  B2 against B1: rtol 1e-4 /
-atol 1e-5 (they sum in different orders); a repeat of B1 or B3 is
-bit-equal.  Each test walks its cases and names them in a failure
-message.
+in another order than cuBLAS).  B2 against B1: rtol 1e-4 / atol 1e-5
+(they sum in different orders; B2 as B3 on the tensor cores); a repeat of
+B1, B2 or B3 is bit-equal.  Each test walks its cases and names them in a
+failure message.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -64,6 +66,13 @@ SHAPES = [  # (B, T, F, r)
     (33, 3, 257, 50),
     (7, 6, 257, 1000),  # flagship widths
     (256, 3, 257, 1000),  # flagship batch
+    # flagship widths at B2's plans: chain B empty, one row a chain, 8-
+    # column tiles with chains of 9 and 8 rows, 32 rows a chain, 7 tiles
+    (1, 4, 257, 1000),
+    (2, 4, 257, 1000),
+    (17, 3, 257, 1000),
+    (64, 3, 257, 1000),
+    (100, 2, 257, 1000),
 ]
 
 
@@ -86,11 +95,14 @@ def _kernel_matches_plain_version(device):
                 out = drnmf_scan.drnmf_scan_factored(*args)
                 again = drnmf_scan.drnmf_scan_factored(*args)
                 inter = drnmf_scan.drnmf_scan_factored(*args, interleave=True)
+                inter_again = drnmf_scan.drnmf_scan_factored(*args,
+                                                             interleave=True)
                 torch.cuda.synchronize()
                 assert drnmf_scan.LAUNCHES == {
                     **before, "factored": before["factored"] + 2,
-                    "interleaved": before["interleaved"] + 1}, case
+                    "interleaved": before["interleaved"] + 2}, case
                 assert torch.equal(out, again), case  # fixed summation order
+                assert torch.equal(inter, inter_again), f"B2 {case}"
                 ref = drnmf_scan.drnmf_scan_factored_reference(*args)
                 for name, got in (("B1", out), ("B2", inter)):
                     np.testing.assert_allclose(
@@ -125,21 +137,29 @@ def _row_bits_do_not_depend_on_the_batch(device):
         assert torch.equal(alone, full[row:row + 1]), row
 
 
-def _refused_launch_raises(device, dense=False):
+def _refused_launch_raises(device, kernel="factored"):
     """A launch the gate refuses (a device without cooperative launch, or
     an error from the launch itself) raises with the shapes, counts no
-    launch and never runs the plain version: B1, or B3 when ``dense``."""
-    if dense:
+    launch and never runs the plain version: B1 (``factored``), B2
+    (``interleaved``) or B3 (``dense``)."""
+    kwargs = {}
+    if kernel == "dense":
         args = _dense_args(np.random.default_rng(1), 3, 5, 9, 8, 3, device)
-        name, library = "drnmf_scan_dense", "_dense_library"
+        name, library, entry = ("drnmf_scan_dense", "_dense_library",
+                                "drnmf_scan_dense")
     else:
         cfg, params, rng = _model(1, 9, 8, 3, device)
         x = torch.from_numpy(rng.uniform(0, 1, (3, 5, 9)).astype(np.float32))
         x = x.to(device)
         args = drnmf.factored_scan_operands(
             params, cfg, x, drnmf.step_mask_from_input(x, cfg.mask_value))
-        name, library = "drnmf_scan_factored", "_library"
-    wrapper = getattr(drnmf_scan, name)
+        name, library, entry = ("drnmf_scan_factored", "_library",
+                                "drnmf_scan_factored")
+        if kernel == "interleaved":
+            library, entry = ("_interleaved_library",
+                              "drnmf_scan_factored_interleaved")
+            kwargs = {"interleave": True}
+    wrapper = functools.partial(getattr(drnmf_scan, name), **kwargs)
 
     class Refusing:
         def __init__(self, lib, name, code):
@@ -158,15 +178,15 @@ def _refused_launch_raises(device, dense=False):
 
     setattr(drnmf_scan, name + "_reference", must_not_run)
     try:
-        for entry, code, match in (
-                (name + "_capacity", 0, "no cooperative launch"),
-                (name, 9, "B=3, T=5, F=9, 2r=16, K=3")):
-            refusing = Refusing(real(), entry, code)
+        for refused, code, match in (
+                (entry + "_capacity", 0, "no cooperative launch"),
+                (entry, 9, "B=3, T=5, F=9, 2r=16, K=3")):
+            refusing = Refusing(real(), refused, code)
             setattr(drnmf_scan, library, lambda: refusing)
             before = dict(drnmf_scan.LAUNCHES)
             with pytest.raises(RuntimeError, match=match):
                 wrapper(*args)
-            assert drnmf_scan.LAUNCHES == before, entry
+            assert drnmf_scan.LAUNCHES == before, refused
             setattr(drnmf_scan, library, real)
     finally:
         setattr(drnmf_scan, library, real)
@@ -409,7 +429,7 @@ def test_dense_and_streaming_on_card(cuda):
     checks and a refused launch; a dense-U and a frozen-U model through the
     batch and the streaming enhancers against the CPU."""
     _dense_kernel_matches_plain_version(cuda)
-    _refused_launch_raises(cuda, dense=True)
+    _refused_launch_raises(cuda, kernel="dense")
     _dense_model_and_streaming_match_cpu(cuda)
 
 
@@ -417,14 +437,16 @@ def test_dense_and_streaming_on_card(cuda):
 def test_on_card(cuda):
     """B1 and B2 against their plain version and each other over a grid of
     shapes (one row, one step, odd B and 2r, K = 1 with the dummy dkT, the
-    flagship widths and batch; tied and untied alph), a bit-equal repeat of
-    B1, a row's bits independent of its batch; the wrapper's checks and a
-    refused launch; the enhancer on the card against the CPU; and the
-    configurations that stay off every kernel."""
+    flagship widths at 1, 2, 7, 17, 64, 100 and 256 rows; tied and untied
+    alph), a bit-equal repeat of each, B1's row bits independent of its
+    batch; the wrapper's checks and a refused launch of each; the enhancer
+    on the card against the CPU; and the configurations that stay off every
+    kernel."""
     _kernel_matches_plain_version(cuda)
     _row_bits_do_not_depend_on_the_batch(cuda)
     _wrapper_rejects_malformed_operands(cuda)
     _refused_launch_raises(cuda)
+    _refused_launch_raises(cuda, kernel="interleaved")
     _enhance_matches_cpu(cuda)
     _other_configs_run_plain_loop(cuda)
 

@@ -5,8 +5,9 @@
 tests/test_pallas_kernels.py builds them.
 
 Tolerance rtol 1e-5 / atol 1e-6 (B1, B3, and the kernels' orders of
-arithmetic: B1's back-projection split over the 2r axis, B3's contraction
-cut into fixed stretches) and rtol 1e-6 / atol 1e-6 (B2,
+arithmetic: B1's back-projection split over the 2r axis, B2's two chains
+and its stretches of 2r and F, B3's contraction cut into fixed
+stretches) and rtol 1e-6 / atol 1e-6 (B2's plain version,
 as the JAX test of the interleaved kernel): f32 on both sides, different
 summation order in the products.  B3's plain version against the JAX
 model's XLA scan: rtol 1e-4 / atol 1e-5, as the JAX test holds its Pallas
@@ -399,3 +400,130 @@ def test_dense_wrapper_rejects_malformed_and_picks_tiles(rng):
     for bsz, ni, items in ((1, 8, 128), (64, 64, 128), (256, 64, 512)):
         plan = tscan.dense_scan_plan(bsz, 257, 2000, 264)
         assert (plan.ni, plan.items) == (ni, items), (bsz, plan)
+
+
+def _interleaved_order_scan(x, step_mask, h0, diag1, off1, c_uk, dkt_stack,
+                            dka_stack, b_stack, split):
+    """Kernel B2's order of arithmetic in plain PyTorch: rows [0, ceil(B/2))
+    and the rest as two chains, each run on its own; each rowsum as
+    partial sums of 16 columns added in group order; each back-projection
+    as partials over ``split`` rows of 2r subtracted from x_t in stretch
+    order; each projection whole, added to the epilogue's other terms
+    before the bias."""
+    n2r = h0.shape[-1]
+    group = tscan.FACTORED_GROUP
+
+    def chain(x, step_mask, h):
+        outs = []
+        for t in range(x.shape[1]):
+            x_t = x[:, t]
+            rs = torch.zeros_like(h[:, :1])
+            for g0 in range(0, n2r, group):
+                rs = rs + h[:, g0:g0 + group].sum(dim=1, keepdim=True)
+            hidden = torch.relu(h * (diag1 - off1) + off1 * rs
+                                + x_t @ dka_stack[0] + b_stack[0])
+            for k in range(1, dka_stack.shape[0]):
+                resid = x_t
+                for s0 in range(0, n2r, split):
+                    resid = resid - (hidden[:, s0:s0 + split]
+                                     @ dkt_stack[k - 1, s0:s0 + split])
+                hidden = torch.relu(c_uk * rs + hidden
+                                    + resid @ dka_stack[k] + b_stack[k])
+            h = torch.where(step_mask[:, t, None], hidden, h)
+            outs.append(h)
+        return torch.stack(outs, dim=1)
+
+    half = -(-x.shape[0] // 2)
+    chains = [chain(x[rows], step_mask[rows], h0[rows])
+              for rows in (slice(0, half), slice(half, None))
+              if x[rows].shape[0]]
+    return torch.cat(chains, dim=0)
+
+
+def test_interleaved_order_matches_pallas_interleaved(rng):
+    """B2's chains, stretches and summed residual compute the TPU
+    interleaved kernel's function: at stretches of 8 rows of 2r (S > 1 at
+    every shape of CASES, B = 1 with an empty chain B, odd B with chains
+    of unequal length), and at the plan's own stretches with 2r > 2L
+    (S = 13 at 2r = 600)."""
+    cases = [(c, 8) for c in CASES]
+    own = tscan.interleaved_scan_plan(4, 65, 600, 132, 396)
+    assert own.splits > 2
+    cases.append(((4, 3, 65, 300, 2), own.split))
+    for shape, split in cases:
+        case = "B%d_T%d_F%d_r%d_K%d" % shape + f" L={split}"
+        args = _operands(rng, *shape)
+        assert -(-2 * shape[3] // split) > 1
+        ref = np.asarray(drnmf_scan_pallas_factored(*args, interpret=True,
+                                                    interleave=True))
+        out = _interleaved_order_scan(*_to_torch(args), split).numpy()
+        np.testing.assert_allclose(out, ref, err_msg=case, **TOL)
+
+
+def test_interleaved_scan_plan_covers_every_output_and_fixes_the_bits():
+    """B2's plan: chain A holds rows [0, ceil(B/2)), chain B the rest, each
+    padded to the same multiple of the batch tile; the items of each
+    phase, mapped as the kernel maps them, cover every (stretch, output
+    row of the weights, scratch row of both chains) once; the stretches
+    cover 2r once and are multiples of the 16-deep stage; L, S, G and the
+    padded widths depend on neither the batch nor the card;
+    and the projection has as many items as the card has SMs wherever the
+    batch allows."""
+    cards = ((132, 396), (132, 1), (8, 24))
+    for f, n2r in ((9, 16), (257, 2000), (33, 14)):
+        fixed = set()
+        for bsz in (1, 2, 3, 64, 256, 257):
+            for n_sm, capacity in cards:
+                case = f"F={f} 2r={n2r} B={bsz} sm={n_sm} cap={capacity}"
+                plan = tscan.interleaved_scan_plan(bsz, f, n2r, n_sm,
+                                                   capacity)
+                fixed.add((plan.split, plan.splits, plan.groups, plan.fp,
+                           plan.ld))
+                assert plan.mt == tscan.INTERLEAVED_M_TILE, case
+                assert plan.ni in tscan.INTERLEAVED_BATCH_TILES, case
+                assert plan.half == -(-bsz // 2), case
+                assert plan.bpc % plan.ni == 0, case
+                assert plan.half <= plan.bpc < plan.half + plan.ni, case
+                assert plan.fp % 4 == 0 and f <= plan.fp < f + 4, case
+                assert plan.ld % 4 == 0 and n2r <= plan.ld < n2r + 4, case
+                assert 1 <= plan.grid <= capacity, case
+                assert plan.grid == min(capacity,
+                                        max(plan.p_items, plan.bp_items))
+                assert plan.groups == -(-n2r // 16), case
+                assert plan.mt % 16 == 0, case  # a rowsum group in a tile
+                assert plan.split % 16 == 0, case
+                cover = np.zeros(n2r, int)
+                for s in range(plan.splits):
+                    cover[s * plan.split:(s + 1) * plan.split] += 1
+                assert (cover == 1).all(), case
+                # scratch rows: chain A [0, bpc), chain B [bpc, 2 bpc)
+                rows = 2 * plan.bpc
+                batch_of = [r if r < plan.half else -1
+                            for r in range(plan.bpc)]
+                batch_of += [plan.half + i if plan.half + i < bsz else -1
+                             for i in range(plan.bpc)]
+                assert sorted(b for b in batch_of if b >= 0) == list(
+                    range(bsz)), case
+                bt = plan.bpc // plan.ni
+                for out_rows, stretches, items in (
+                        (n2r, 1, plan.p_items),
+                        (plan.fp, plan.splits, plan.bp_items)):
+                    mt = -(-out_rows // plan.mt)
+                    assert items == stretches * mt * bt, case
+                    hits = np.zeros((stretches, mt * plan.mt, rows), np.uint8)
+                    for item in range(items):
+                        col0 = item % bt * plan.ni
+                        row0 = item // bt % mt * plan.mt
+                        s = item // (bt * mt)
+                        for c0 in (col0, plan.bpc + col0):
+                            hits[s, row0:row0 + plan.mt,
+                                 c0:c0 + plan.ni] += 1
+                    assert (hits == 1).all(), case
+                if n_sm == 132 and f == 257 and bsz >= 64:
+                    assert plan.p_items >= 128, case
+        assert len(fixed) == 1, (f, n2r, fixed)
+    # the paths' shapes on an H100: 8 columns a chain at a few rows and at
+    # 64 rows (128 items, where 16 columns would give 64), 16 at 256 rows
+    for bsz, tiles in ((1, (64, 8)), (64, (64, 8)), (256, (64, 16))):
+        plan = tscan.interleaved_scan_plan(bsz, 257, 2000, 132, 396)
+        assert (plan.mt, plan.ni) == tiles, (bsz, plan)
