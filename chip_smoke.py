@@ -11,9 +11,10 @@ Phases, each printing one JSON line:
 1. device  -- requires CUDA; prints the card's name and power limit.
 2. build   -- builds kernels B1 (ops/csrc/drnmf_scan_factored.cu), B2
               (ops/csrc/drnmf_scan_factored_interleaved.cu), B3
-              (ops/csrc/drnmf_scan_dense.cu) and B4/B5 (ops/csrc/snmf_mu.cu)
-              with nvcc, one process each, in parallel; prints ptxas's
-              register and spill counts.
+              (ops/csrc/drnmf_scan_dense.cu), B1's backward
+              (ops/csrc/drnmf_scan_factored_bwd.cu) and B4/B5
+              (ops/csrc/snmf_mu.cu) with nvcc, one process each, in
+              parallel; prints ptxas's register and spill counts.
 3. kernel  -- B1 against its plain PyTorch version on the card, at a small
               odd shape and at the flagship widths over 64 steps.
    interleave_kernel -- B2 against the same plain version and against B1
@@ -24,6 +25,15 @@ Phases, each printing one JSON line:
               at a scale where every term moves the output: a ragged shape,
               K = 1 (dummy S, zero uk, odd 2r), a masked tail, the flagship
               widths at a batch of 256, of 64 and of 1; logs B3's plan.
+   train_kernel -- B1 with every layer kept (``keep_layers``: its top
+              output bit-equal to B1 without the flag, its layer stack
+              against the plain loop's) and the backward kernel against its
+              plain version on that stack, at a small ragged shape with
+              K = 5, odd F and 2r, K = 1 at the flagship widths, the
+              flagship at 32 rows and at one row over 64 steps, masked
+              tails and a masked step mid-sequence; a bit-equal repeat,
+              padded columns zero, and rows 0-15, 0 and 31 alone against
+              the same rows of the 32-row call, bit for bit.
    snmf_kernel -- B4 and B5 against their plain versions (and one whole MU
               iteration with half of W frozen) at the JAX hold-out shape, at
               shapes that cut every tile (n below one tile, n = 1, 2, 3 mod 4,
@@ -79,16 +89,39 @@ Phases, each printing one JSON line:
               threads sending 3 s each in protocol chunks; replies against
               offline.  Every socket has a timeout.
    paced   -- ``paced_load`` for 5 s at 64 streams; prints ``paced_stats``.
-9. snmf_recipe -- the dictionary stage through ``train_snmf`` at full width
+9. train   -- the flagship model through ``drnmf_torch.train.train_model``
+              at the reference schedule (B=32, T=500, Adam lr 1e-3) on
+              synthetic noisy/clean magnitudes (``synth_magnitudes``, every
+              fourth sequence padded past an early end): 2 epochs of 4
+              batches and 32 validation sequences; each step launches B1
+              (every layer kept) and the backward kernel once, each
+              evaluation B1 once, the time loop never.  Then
+              (``train_check``) one batch's gradients against autograd
+              through ``drnmf_scan_factored_reference`` (within
+              GRAD_RTOL_OF_MAX of each gradient's largest entry) and three
+              Adam steps' losses and parameters against the same steps on
+              the plain Function (``scan_factored_train_reference``;
+              rtol 1e-4, parameters also atol 1e-6); and
+              (``train_times``) ms a step (median of 5 after 2), steps/s
+              and valid frames/s, one step under ``torch.profiler`` (B1's
+              and the backward kernel's device ms, the device's idle
+              share), and the forward, the backward kernel (and its plain
+              version, its error at this shape) and the weight-gradient
+              products each timed alone, each beside its bound
+              (``train_bounds``); heads, loss and Adam are the profiled
+              device time left.  The trained model then enhances 4
+              signals through B1 against its plain path
+              (``train_parity``, the parity tolerance).
+10. snmf_recipe -- the dictionary stage through ``train_snmf`` at full width
               (r=1000, 2r=2000, F=257) on 139 x 8 s of synthetic clean and
               noisy frames (139,695 frames: stage 1 in one chunk, stage 2 in
               two), 10 iterations a chunk; B4/B5 launch once per iteration;
               the dictionary then initialises the flagship model, which
               enhances 4 signals through B1.
-10. snmf_infer -- ``snmf_infer_irm`` (W frozen, 200 iterations) on 16 x 8 s.
-11. snmf_parity -- ``sparse_nmf_ed`` with B4/B5 against the same solver on
+11. snmf_infer -- ``snmf_infer_irm`` (W frozen, 200 iterations) on 16 x 8 s.
+12. snmf_parity -- ``sparse_nmf_ed`` with B4/B5 against the same solver on
               the plain passes, 10 iterations at 257 x 16,080 x 2000.
-12. snmf_times -- B4, B5, their plain versions and the bare cuBLAS products
+13. snmf_times -- B4, B5, their plain versions and the bare cuBLAS products
               at bench.py's SNMF shape (257 x 140,000, 2r=2000): ms, useful
               TFLOP/s, the bound (one TF32 tensor-core pass or the bytes)
               beside what three TF32 passes and the f32 CUDA cores could
@@ -99,7 +132,8 @@ Phases, each printing one JSON line:
 Every path is driven with all launch counts set to 0 just before it and
 read just after.
 
-Then a line with the kernel table, the card's ``nvidia-smi`` line, and last
+Then a line with the kernel table (B1 to B5 and the backward kernel), the
+card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that.
 """
 
@@ -151,6 +185,20 @@ WAVE_RTOL_OF_PEAK = 2e-4
 STREAM_RTOL, STREAM_ATOL = 1e-4, 1e-5
 STREAMS, MULTI_BLOCK = 64, 16  # the server's default block (serve.py)
 SOCKET_TIMEOUT_S = 120.0
+# training at the reference schedule (BASELINE.md, "Train maxlen" and
+# "DR-NMF training": Adam lr 1e-3, clipnorm 0, batch 32, 500 frames a
+# sequence), cut to 2 epochs of 4 batches and 32 validation sequences
+TRAIN_BATCH, TRAIN_T, TRAIN_BATCHES, VALID_SEQS, TRAIN_EPOCHS = (
+    32, 500, 4, 32, 2)
+TRAIN_LR = 1e-3
+# gradients through the kernels against those through the plain versions
+# (f32 both sides, sums in other orders, through 500 steps): relative to
+# each gradient's largest entry
+GRAD_RTOL_OF_MAX = 1e-4
+# ... and, where every layer is active (alph = 2000), against float64: the
+# f32 plain route itself is 6.4e-4 off there (relu decisions near zero and
+# 500 steps of the gamma chain), so 1e-3
+GRAD_RTOL_VS_F64 = 1e-3
 
 
 def log(phase, **fields):
@@ -189,6 +237,22 @@ def flagship():
                                generator=torch.Generator().manual_seed(7654),
                                device="cuda")
     return config, params
+
+
+def live_flagship(config, params):
+    """The flagship model with alph = 2000 in every layer (log_alph set as
+    ``init_drnmf_params`` sets it).  At the flagship's alph = 400 the
+    positive random dictionary makes every ISTA layer overshoot: layers 1
+    and 3 are zero at every unit and step, so no gradient reaches below the
+    top layer.  At 2000 every layer is partly active (63-100% of units on
+    uniform(0, 1) frames), so a check of the backward sees every layer."""
+    import torch
+
+    live = dict(params)
+    for name in config.untied_names("log_alph"):
+        live[name] = torch.full_like(params[name],
+                                     float(np.log(np.float32(1e-7 + 2000.0))))
+    return dataclasses.replace(config, alph=2000.0), live
 
 
 def dense_flagship(config, params):
@@ -302,6 +366,21 @@ def factored_flops(args):
     return 2 * f * n2r * (2 * k_layers - 1) * int(args[1].sum().item())
 
 
+def bounds_of(flops, nbytes):
+    """Bounds of work of ``flops`` and ``nbytes``: ``bound_ms`` /
+    ``bound_by``, the larger of one dense TF32 tensor-core pass and the
+    bytes; ``bound_3xtf32_ms`` with three TF32 passes a term;
+    ``bound_f32_cuda_cores_ms`` at the f32 rate of the CUDA cores."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_TF32_FLOPS
+    return {"flops": flops, "bytes": nbytes,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_3xtf32_ms": 1e3 * max(3 * t_ops, t_bytes),
+            "bound_f32_cuda_cores_ms": 1e3 * max(flops / PEAK_F32_FLOPS,
+                                                 t_bytes)}
+
+
 def factored_bounds(args):
     """Bounds of one B1 or B2 call on these inputs (they compute the same
     function), in ``b3_bounds``' form.  The bytes: each input the function
@@ -313,18 +392,10 @@ def factored_bounds(args):
     f32 rate of the CUDA cores, the bound of B1's f32 arithmetic."""
     bsz, t_len, _ = args[0].shape
     n2r, k_layers = args[2].shape[-1], args[7].shape[0]
-    flops = factored_flops(args)
     read = [a for i, a in enumerate(args) if k_layers > 1 or i != 6]
     nbytes = sum(a.numel() * a.element_size() for a in read)
     nbytes += bsz * t_len * n2r * 4  # output
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_TF32_FLOPS
-    return {"flops": flops, "bytes": nbytes,
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "bound_3xtf32_ms": 1e3 * max(3 * t_ops, t_bytes),
-            "bound_f32_cuda_cores_ms": 1e3 * max(flops / PEAK_F32_FLOPS,
-                                                 t_bytes)}
+    return bounds_of(factored_flops(args), nbytes)
 
 
 BOUND_KEYS = ("bound_ms", "bound_by", "bound_3xtf32_ms",
@@ -366,14 +437,7 @@ def b3_bounds(args):
     nbytes = sum(a.numel() * a.element_size() for a in read)
     nbytes += bsz * t_len * n2r * 4  # output
     nbytes += (t_len - 1) * max(0, weights - L2_BYTES)
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_TF32_FLOPS
-    return {"flops": flops, "bytes": nbytes, "weight_bytes": weights,
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "bound_3xtf32_ms": 1e3 * max(3 * t_ops, t_bytes),
-            "bound_f32_cuda_cores_ms": 1e3 * max(flops / PEAK_F32_FLOPS,
-                                                 t_bytes)}
+    return {**bounds_of(flops, nbytes), "weight_bytes": weights}
 
 
 def b3_plan(bsz, f, n2r):
@@ -652,13 +716,12 @@ def profile_split(fn, top=None):
             "idle_share": max(0.0, 1.0 - busy / wall_ms) if busy else None}
 
 
-def synth_frames(gen, n_signals, seconds=8.0):
-    """Clean and noisy magnitude frames (F, n_signals * frames) of
+def synth_magnitudes(gen, n_signals, seconds=8.0):
+    """Clean and noisy magnitude spectrograms (n_signals, T, F) of
     synthetic signals, made on the card: three tones a signal with a slow
     amplitude envelope, plus white noise for the noisy copy; through the
-    port's STFT (n_fft 512, hop 128) and the pipeline's frame glue."""
+    port's STFT (n_fft 512, hop 128)."""
     import torch
-    from drnmf_torch.data import masked_seqs_to_frames
     from drnmf_torch.dsp.stft import stft
 
     def rand(*shape):
@@ -671,16 +734,24 @@ def synth_frames(gen, n_signals, seconds=8.0):
     env = 0.5 + 0.5 * torch.sin(2 * np.pi * 0.5 * t + phase)
     clean = (amp * env * torch.sin(2 * np.pi * freq * t + phase)).sum(dim=1)
     noise = 0.05 * torch.randn(clean.shape, generator=gen, device="cuda")
+    return [stft(wav, N_FFT, HOP).abs() for wav in (clean, clean + noise)]
+
+
+def synth_frames(gen, n_signals, seconds=8.0):
+    """Clean and noisy magnitude frames (F, n_signals * frames) of
+    ``synth_magnitudes``' signals, through the pipeline's frame glue."""
+    import torch
+    from drnmf_torch.data import masked_seqs_to_frames
+
     frames = []
-    for wav in (clean, clean + noise):
-        mag = stft(wav, N_FFT, HOP).abs()  # (B, T, F)
+    for mag in synth_magnitudes(gen, n_signals, seconds):
         mask = torch.ones(mag.shape[:2] + (1,), device="cuda")
         frames.append(masked_seqs_to_frames(mag, mask))
     return frames
 
 
 def snmf_phases(card, config):
-    """Phases 7-10; returns the kernel table's rows for B4 and B5."""
+    """Phases 10-13; returns the kernel table's rows for B4 and B5."""
     import torch
     from drnmf_torch.config import snmf_params_from_config
     from drnmf_torch.convert import init_drnmf_params
@@ -1289,6 +1360,418 @@ def paced_phase(card, config, params):
     return launches
 
 
+def train_bounds(args, n_trainable):
+    """Bounds of the parts of one train step on B1's operands ``args``,
+    counting what this batch's valid row-steps need.  Forward: B1's
+    (``factored_bounds``) plus every layer's hidden state written.
+    Backward kernel: 2(K-1) products of 2*F*2r a valid row-step (B1's
+    2K-1 less the first layer's and the top layer's input products); the
+    layer stack read, the deltas, p and gamma written, g read.  Weight
+    gradients: 1 + 3(K-1) products of 2*F*2r a valid row-step, reading x,
+    the stack, the deltas and p, writing the gradients.  Heads, loss and
+    Adam: the two heads' products forward and their two backward ones
+    (3 x 2*F*2r a row-step), the top layer and its gradient, x and y, and
+    Adam's reads and writes of each trainable entry (parameter, gradient,
+    two moments: 7 x 4 bytes)."""
+    bsz, t_len, f = args[0].shape
+    n2r, k = args[2].shape[-1], args[7].shape[0]
+    valid = int(args[1].sum().item())
+    plane = bsz * t_len * n2r * 4
+    fwd = factored_bounds(args)
+    fwd = bounds_of(fwd["flops"], fwd["bytes"] + k * plane)
+    weights = 2 * (k - 1) * f * n2r * 4
+    bwd = bounds_of(2 * f * n2r * 2 * (k - 1) * valid,
+                    2 * k * plane + plane + (k - 1) * bsz * t_len * f * 4
+                    + weights + bsz * n2r * 4)
+    grads = bounds_of((1 + 3 * (k - 1)) * 2 * f * n2r * valid,
+                      bsz * t_len * f * 4 + (2 * k - 1) * plane
+                      + (k - 1) * bsz * t_len * f * 4
+                      + (2 * k - 1) * f * n2r * 4 + k * n2r * 4)
+    heads = bounds_of(3 * 2 * f * n2r * valid,
+                      2 * plane + 2 * bsz * t_len * f * 4
+                      + 7 * 4 * n_trainable)
+    return {"forward": fwd, "backward": bwd, "weight_grads": grads,
+            "heads_loss_adam": heads}
+
+
+def train_sequences(gen, n, config):
+    """(x, y, mask (n, T, 1)) numpy: noisy and clean magnitudes of n
+    synthetic 4 s signals (``synth_magnitudes``) cut to TRAIN_T frames;
+    every fourth sequence ends early, at frame 300 + (37 i mod 200), and
+    its tail holds the mask value with mask 0, as a padded utterance's
+    does."""
+    import torch
+
+    clean, noisy = synth_magnitudes(gen, n, TRAIN_T * HOP / FS)
+    y = clean[:, :TRAIN_T].contiguous()
+    x = noisy[:, :TRAIN_T].contiguous()
+    mask = torch.ones((n, TRAIN_T, 1), device="cuda")
+    for i in range(0, n, 4):
+        end = 300 + (37 * i) % 200
+        x[i, end:] = config.mask_value
+        y[i, end:] = config.mask_value
+        mask[i, end:] = 0
+    return tuple(a.cpu().numpy() for a in (x, y, mask))
+
+
+def backward_check(args, g):
+    """B1 with every layer kept against B1 without the flag (the top
+    output bit for bit) and the plain loop's stack; the backward kernel
+    against its plain version on that stack, a repeat bit-equal, padded
+    columns zero.  Returns (a log dict, ok, the stack)."""
+    import torch
+    from drnmf_torch.ops import drnmf_scan
+
+    bsz = args[0].shape[0]
+    out = drnmf_scan.drnmf_scan_factored(*args)
+    kept, h_all = drnmf_scan.drnmf_scan_factored(*args, keep_layers=True)
+    _, ref_h = drnmf_scan.drnmf_scan_factored_reference(*args,
+                                                        keep_layers=True)
+    back_args = (g, args[1], h_all, *args[3:8])
+    got = drnmf_scan.drnmf_scan_factored_backward(*back_args)
+    again = drnmf_scan.drnmf_scan_factored_backward(*back_args)
+    ref = drnmf_scan.drnmf_scan_factored_backward_reference(*back_args)
+    torch.cuda.synchronize()
+    errs = {"h_all": compare(h_all[..., :bsz], ref_h)}
+    for name, a, b in zip(("delta", "p", "gamma"), got, ref):
+        errs[name] = compare(a, b) if b.numel() else (0.0, 0.0, True)
+    top_equal = bool(torch.equal(kept, out))
+    repeat_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+    padded_zero = not (got[0][..., bsz:].any() or got[1][..., bsz:].any())
+    ok = (top_equal and repeat_equal and padded_zero
+          and all(e[2] for e in errs.values()))
+    return ({"max_abs_err": {k: e[0] for k, e in errs.items()},
+             "max_rel_err": {k: e[1] for k, e in errs.items()},
+             "top_output_bit_equal": top_equal,
+             "repeat_bit_equal": repeat_equal,
+             "padded_columns_zero": padded_zero}, ok, h_all)
+
+
+def train_kernel_phase(config, params):
+    """Phase 3 for training's kernels (``backward_check``) at a ragged
+    small shape with K = 5, odd F and 2r with K = 2, K = 1 at the flagship
+    widths, and the flagship at B = 32 and at one row over 64 steps, with
+    masked tails and a masked step mid-sequence; at the flagship's 32 rows,
+    rows 0-15 and rows 0 and 31 run alone against the same rows of the
+    32-row call, bit for bit.  These launches count for no path."""
+    import torch
+    from drnmf_torch.convert import init_drnmf_params
+    from drnmf_torch.models.drnmf import DRNMFConfig
+    from drnmf_torch.ops import drnmf_scan
+
+    rng = np.random.default_rng(11)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases = []
+    for name, (bsz, t_len, f, r, k) in (
+            ("small_B5_T13_F9_2r16_K5", (5, 13, 9, 8, 5)),
+            ("odd_B3_T7_F33_2r14_K2", (3, 7, 33, 7, 2)),
+            ("K1_B33_T4_F257_2r2000", (33, 4, 257, 1000, 1)),
+            ("flagship_B32_T64_F257_2r2000_K5", (32, 64, 257, 1000, 5)),
+            ("flagship_B1_T64_F257_2r2000_K5", (1, 64, 257, 1000, 5))):
+        if f == 257 and k == 5:
+            cfg, prm = live_flagship(config, params)
+        else:
+            w = rng.uniform(0.05, 1.0, (f, 2 * r)).astype(np.float32)
+            w /= np.sqrt(np.sum(w**2, axis=0))
+            cfg = DRNMFConfig(input_dim=f, r=r, output_dim=f, K_layers=k,
+                              alph=10.0, lam1=0.5)
+            prm = init_drnmf_params(cfg, w, generator=torch.Generator()
+                                    .manual_seed(0), device="cuda")
+        x = rng.uniform(0, 1, (bsz, t_len, f)).astype(np.float32)
+        x[bsz // 2, t_len // 2:] = cfg.mask_value
+        if t_len > 2:
+            x[-1, 2] = cfg.mask_value
+        args = scan_operands(cfg, prm, x)
+        g = torch.randn((bsz, t_len, 2 * r), generator=gen, device="cuda")
+        fields, ok, h_all = backward_check(args, g)
+        log("train_kernel", case=name, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
+            ok=ok, **fields)
+        check(ok, f"B1 with every layer kept or the backward kernel "
+                  f"disagrees with its plain version at {name}")
+        if bsz == 32:
+            batch = args, g, h_all
+    args, g, h_all = batch
+    full = drnmf_scan.drnmf_scan_factored_backward(g, args[1], h_all,
+                                                   *args[3:8])
+    rows_equal = {}
+    for sel in (slice(0, 16), slice(0, 1), slice(31, 32)):
+        rows = [a[sel].contiguous() if i < 3 else a
+                for i, a in enumerate(args)]
+        n = sel.stop - sel.start
+        _, h_rows = drnmf_scan.drnmf_scan_factored(*rows, keep_layers=True)
+        got = drnmf_scan.drnmf_scan_factored_backward(
+            g[sel].contiguous(), rows[1], h_rows, *rows[3:8])
+        rows_equal[f"{sel.start}-{sel.stop - 1}"] = bool(
+            torch.equal(h_rows[..., :n], h_all[..., sel])
+            and torch.equal(got[0][..., :n], full[0][..., sel])
+            and torch.equal(got[1][..., :n], full[1][..., sel])
+            and torch.equal(got[2], full[2][sel]))
+    log("train_kernel", case="flagship_B32_T64 rows alone",
+        rows_bit_equal=rows_equal)
+    check(all(rows_equal.values()),
+          f"training kernels' rows differ when run alone: {rows_equal}")
+
+
+def train_phase(card, config, params):
+    """Phase ``train`` (module docstring).  Returns (the fit's launches,
+    the kernel table's row of the backward kernel)."""
+    import types
+
+    import torch
+    from drnmf_torch.convert import params_from_numpy
+    from drnmf_torch.models import batched_grad, drnmf
+    from drnmf_torch.ops import drnmf_scan
+    from drnmf_torch.train import (TrainConfig, load_checkpoint,
+                                   make_optimizer, make_train_step,
+                                   masked_mse_signal_approx, train_model)
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke", "train")
+    os.makedirs(work, exist_ok=True)
+    gen = torch.Generator(device="cuda").manual_seed(2018)
+    train = train_sequences(gen, TRAIN_BATCHES * TRAIN_BATCH, config)
+    valid = train_sequences(gen, VALID_SEQS, config)
+    trains = drnmf.drnmf_trainable_mask(config, params)
+    names = sorted(k for k in params if trains[k])
+    n_trainable = sum(params[k].numel() for k in names)
+
+    def loss_fn(scan_fn=None):
+        def loss(p, x, y, mask):
+            irm = drnmf.drnmf_forward(p, config, x, scan_fn=scan_fn)
+            return masked_mse_signal_approx(irm, x, y, mask)
+        return loss
+
+    tc = TrainConfig(epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH,
+                     learning_rate=TRAIN_LR, clipnorm=0.0, patience=50,
+                     verbose=False)
+    savefile = os.path.join(work, "model_unfolded_snmf_trained.npz")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best, hist = train_model(params, loss_fn(), train, valid, tc,
+                             trainable_mask=trains, savefile=savefile,
+                             histfile=os.path.join(work, "history.pkl"))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    steps = TRAIN_EPOCHS * TRAIN_BATCHES
+    evals = TRAIN_EPOCHS  # one batch of up to 250 validation sequences
+    epochs = hist.history["on_epoch_end"]
+    saved, meta = load_checkpoint(savefile)
+    log("train", card=card, launches=launches, fit_seconds=fit_s,
+        steps=steps, batch=TRAIN_BATCH, frames_a_sequence=TRAIN_T,
+        epoch_loss=epochs["loss"], val_loss=epochs["val_loss"],
+        batch_loss=hist.history["on_batch_end"]["loss"],
+        checkpoint_val_loss=float(meta["val_loss"]))
+    check(launches["factored"] == steps + evals
+          and launches["factored_backward"] == steps
+          and only_launched(launches, "factored", "factored_backward"),
+          f"train: launches {launches}, expected {steps} of the backward "
+          f"kernel and {steps + evals} of B1 (one a step, one an "
+          "evaluation), no time loop and no other kernel")
+    check(len(epochs["val_loss"]) == TRAIN_EPOCHS
+          and np.isfinite(hist.history["on_batch_end"]["loss"]).all()
+          and np.isfinite(epochs["val_loss"]).all()
+          and saved.keys() == best.keys()
+          and float(meta["val_loss"]) == min(epochs["val_loss"]),
+          "train: the history or the checkpoint is wrong")
+
+    # one batch's gradients against autograd through the plain recurrence
+    xb, yb, mb = (torch.from_numpy(a[:TRAIN_BATCH]).cuda() for a in train)
+
+    def fresh():
+        return {k: v.detach().clone().requires_grad_(trains[k])
+                for k, v in params.items()}
+
+    def gradients(cfg, prm, scan, dtype=torch.float32):
+        """The loss's gradients (as float64) of the scan's operands h0,
+        dkT, dka, b (what the Function returns) and of the trainable
+        parameters, with the scan's operands."""
+        p = {k: v.detach().to(dtype).requires_grad_(trains[k])
+             for k, v in prm.items()}
+        x = xb.to(dtype)
+        ops = drnmf.factored_scan_operands(
+            p, cfg, x, drnmf.step_mask_from_input(x, cfg.mask_value))
+        clean, noise = drnmf._heads(p, cfg, scan(*ops))
+        irm = drnmf._ratio_mask(clean, noise, cfg.transform_before_irm)
+        loss = masked_mse_signal_approx(irm, x, yb.to(dtype), mb.to(dtype))
+        wrt = [ops[2], ops[6], ops[7], ops[8]] + [p[k] for k in names]
+        got = torch.autograd.grad(loss, wrt)
+        return ops, dict(zip(["h0", "dkT", "dka", "b"] + names,
+                             (g.double() for g in got)))
+
+    def rel_errs(got, want, ops):
+        """Each gradient's max error relative to the largest entry of
+        ``want``; log_alph_k's, a sum of two parts that cancel (through
+        dka_k and b_k), relative to the parts' size."""
+        errs = {}
+        for key, b in want.items():
+            err = (got[key] - b).abs().max().item()
+            scale = b.abs().max().item()
+            if key.startswith("log_alph"):
+                k = int(key.rsplit("_", 1)[1])
+                scale = (abs((ops[7][k].double() * want["dka"][k]).sum()
+                             .item())
+                         + abs((ops[8][k].double() * want["b"][k]).sum()
+                               .item()))
+            errs[key] = (err / scale if scale > 0
+                         else (0.0 if err == 0 else np.inf))
+        return errs
+
+    # the flagship against autograd through the plain recurrence in f32;
+    # at alph = 2000 (every layer active) both f32 routes against float64
+    grad_rel, grad_launches = {}, {}
+    for label, (cfg, prm) in (("flagship", (config, params)),
+                              ("flagship_alph2000",
+                               live_flagship(config, params))):
+        reset_launches()
+        _, got = gradients(cfg, prm, batched_grad.scan_factored_train)
+        torch.cuda.synchronize()
+        grad_launches[label] = read_launches()
+        ops, want = gradients(cfg, prm,
+                              drnmf_scan.drnmf_scan_factored_reference)
+        _, h_all = drnmf_scan.drnmf_scan_factored(
+            *(o.detach() for o in ops), keep_layers=True)
+        grad_rel[label] = {
+            "kernel_vs_plain": rel_errs(got, want, ops),
+            # the share of each layer's units above zero over the batch
+            "active_share_by_layer": (h_all > 0).float().mean(
+                dim=(1, 2, 3)).tolist()}
+        del h_all
+        if label != "flagship":
+            ops, f64 = gradients(cfg, prm,
+                                 drnmf_scan.drnmf_scan_factored_reference,
+                                 torch.float64)
+            grad_rel[label].update(kernel_vs_f64=rel_errs(got, f64, ops),
+                                   plain_vs_f64=rel_errs(want, f64, ops))
+            del f64
+        del got, want, ops
+    # three Adam steps against the same steps on the plain Function
+    def three_steps(scan_fn):
+        p = fresh()
+        step = make_train_step(loss_fn(scan_fn), make_optimizer(tc, p, trains))
+        losses = [float(step(p, xb, yb, mb)) for _ in range(3)]
+        return losses, p
+
+    fast_losses, fast = three_steps(None)
+    plain_losses, plain = three_steps(batched_grad.scan_factored_train_reference)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(fast_losses,
+                                                       plain_losses))
+    param_off = {k: int((~torch.isclose(fast[k], plain[k], rtol=1e-4,
+                                        atol=1e-6)).sum().item())
+                 for k in names}
+    param_diff = {k: (fast[k] - plain[k]).abs().max().item() for k in names}
+    log("train_check", grad_rel_err=grad_rel,
+        grad_rtol_of_max=GRAD_RTOL_OF_MAX,
+        grad_rtol_against_f64=GRAD_RTOL_VS_F64, grad_launches=grad_launches,
+        three_step_losses=fast_losses, three_step_losses_plain=plain_losses,
+        loss_max_rel_diff=loss_rel, param_max_abs_diff=param_diff,
+        params_past_tolerance=param_off, param_rtol=1e-4, param_atol=1e-6)
+    check(all(n["factored"] == 1 and n["factored_backward"] == 1
+              and only_launched(n, "factored", "factored_backward")
+              for n in grad_launches.values()),
+          f"a gradient launched {grad_launches}")
+    check(all(v <= GRAD_RTOL_OF_MAX
+              for v in grad_rel["flagship"]["kernel_vs_plain"].values())
+          and all(v <= GRAD_RTOL_VS_F64 for v in
+                  grad_rel["flagship_alph2000"]["kernel_vs_f64"].values()),
+          f"gradients through the kernels disagree with the plain "
+          f"recurrence's: {grad_rel}")
+    check(loss_rel <= 1e-4 and not any(param_off.values()),
+          "three steps on the kernels disagree with the plain Function's")
+    del fast, plain
+
+    # times: a step, then its parts, each beside its bound
+    p = fresh()
+    step = make_train_step(loss_fn(), make_optimizer(tc, p, trains))
+    walls = []
+    for i in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(p, xb, yb, mb)
+        torch.cuda.synchronize()
+        if i >= 2:
+            walls.append(1e3 * (time.perf_counter() - t0))
+    step_ms = statistics.median(walls)
+    prof = profile_split(lambda: step(p, xb, yb, mb))
+    kernel_ms = {"forward": 0.0, "backward": 0.0}
+    for name, (ms, _) in prof["device_ms_by_kernel"].items():
+        if "drnmf_scan_factored_bwd_kernel" in name:
+            kernel_ms["backward"] += ms
+        elif "drnmf_scan_factored_kernel" in name:
+            kernel_ms["forward"] += ms
+    args = drnmf.factored_scan_operands(params, config, xb,
+                                        drnmf.step_mask_from_input(
+                                            xb, config.mask_value))
+    g = torch.randn((TRAIN_BATCH, TRAIN_T, config.hidden_dim),
+                    generator=gen, device="cuda")
+    fwd_ms = cuda_ms(lambda: drnmf_scan.drnmf_scan_factored(
+        *args, keep_layers=True), 3)
+    _, h_all = drnmf_scan.drnmf_scan_factored(*args, keep_layers=True)
+    back_args = (g, args[1], h_all, *args[3:8])
+    bwd_ms = cuda_ms(lambda: drnmf_scan.drnmf_scan_factored_backward(
+        *back_args), 3)
+    delta, p_all, gamma = drnmf_scan.drnmf_scan_factored_backward(*back_args)
+    no_dx = types.SimpleNamespace(needs_input_grad=(False, False))
+    gemm_ms = cuda_ms(lambda: batched_grad._weight_grads(
+        no_dx, args[0], h_all, delta, p_all, args[6], args[7]), 3)
+    plain_bwd_ms = cuda_ms(
+        lambda: drnmf_scan.drnmf_scan_factored_backward_reference(
+            *back_args), 1)
+    ref = drnmf_scan.drnmf_scan_factored_backward_reference(*back_args)
+    errs = {name: compare(a, b)
+            for name, a, b in zip(("delta", "p", "gamma"),
+                                  (delta, p_all, gamma), ref)}
+    bwd_err = max(e[0] for e in errs.values())
+    check(all(e[2] for e in errs.values()),
+          f"the backward kernel disagrees with its plain version at the "
+          f"train step's shape: {errs}")
+    del ref, delta, p_all, h_all
+    bounds = train_bounds(args, n_trainable)
+    valid_frames = int(args[1].sum().item())
+    rest_ms = prof["device_busy_ms"] - sum(kernel_ms.values()) - gemm_ms
+    parts = {
+        "forward": {"ms": fwd_ms, "ms_profiled": kernel_ms["forward"]},
+        "backward": {"ms": bwd_ms, "ms_profiled": kernel_ms["backward"],
+                     "plain_ms": plain_bwd_ms},
+        "weight_grads": {"ms": gemm_ms},
+        "heads_loss_adam": {"ms_profiled_rest": rest_ms}}
+    for key, b in bounds.items():
+        parts[key].update({k: b[k] for k in ("flops", "bytes",
+                                               *BOUND_KEYS)})
+    log("train_times", card=card, shape=[TRAIN_BATCH, TRAIN_T],
+        step_ms=step_ms, step_ms_runs=walls, steps_per_s=1e3 / step_ms,
+        frames_per_s=valid_frames * 1e3 / step_ms,
+        valid_frames_a_step=valid_frames,
+        backward_max_abs_err={k: e[0] for k, e in errs.items()},
+        backward_max_rel_err={k: e[1] for k, e in errs.items()},
+        parts=parts, device_busy_ms=prof["device_busy_ms"],
+        wall_ms_profiled=prof["wall_ms_profiled"],
+        idle_share=prof["idle_share"],
+        device_ms_by_kernel=dict(list(prof["device_ms_by_kernel"].items())
+                                 [:8]))
+    check(all(v["ms"] >= bounds[k]["bound_ms"]
+              for k, v in parts.items() if "ms" in v),
+          f"a part of the train step reads faster than its bound: {parts}")
+
+    # the trained model enhances through B1 as its plain path does
+    parity_phase("train_parity", config, params_from_numpy(best, "cuda"),
+                 drnmf_scan.drnmf_scan_factored_reference)
+    return launches, {
+        "name": "drnmf_scan_factored_backward",
+        "route": "cuda",
+        "source": "drnmf_torch/ops/csrc/drnmf_scan_factored_bwd.cu",
+        "replaces": "drnmf_tpu/models/batched_grad.py:99",
+        "launches": launches["factored_backward"],
+        "max_abs_err": bwd_err,
+        "ms": bwd_ms,
+        "plain_ms": plain_bwd_ms,
+        **{k: bounds["backward"][k] for k in BOUND_KEYS},
+        # no single PyTorch call computes the reverse chain
+        "library_ms": None,
+    }
+
+
 def main():
     import torch
 
@@ -1313,12 +1796,14 @@ def main():
     # 2. build, one nvcc per source, all started together
     t0 = time.perf_counter()
     sources = (drnmf_scan.SOURCE, drnmf_scan.INTERLEAVED_SOURCE,
-               drnmf_scan.DENSE_SOURCE, snmf_mu.SOURCE)
+               drnmf_scan.DENSE_SOURCE, drnmf_scan.BACKWARD_SOURCE,
+               snmf_mu.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(build.build, sources))
     drnmf_scan._library()
     drnmf_scan._interleaved_library()
     drnmf_scan._dense_library()
+    drnmf_scan._backward_library()
     snmf_mu._library()
     for source, lib in zip(sources, built):
         log("build", seconds=time.perf_counter() - t0, library=str(lib.name),
@@ -1330,6 +1815,7 @@ def main():
     # 3. kernels vs plain versions
     config, params = flagship()
     kernel_phases(config, params)
+    train_kernel_phase(config, params)
     snmf_kernel_phase()
 
     # 4. main path, through the entry points, at full width
@@ -1570,12 +2056,15 @@ def main():
     paced_launches = paced_phase(card, config, params)
     del dense_params
 
+    # 9. training at the reference schedule
+    train_launches, backward_row = train_phase(card, config, params)
+
     snmf_rows = snmf_phases(card, config)
 
     def by_path(kernel):
         paths = {"main": main_launches, "dense_main": dense_launches,
                  **multi_launches, "serve": serve_launches,
-                 "paced": paced_launches}
+                 "paced": paced_launches, "train": train_launches}
         return {path: counts[kernel] for path, counts in paths.items()
                 if counts[kernel]}
 
@@ -1618,7 +2107,7 @@ def main():
         "bound_3xtf32_ms": b3_bounds_main["bound_3xtf32_ms"],
         "bound_f32_cuda_cores_ms": b3_bounds_main["bound_f32_cuda_cores_ms"],
         "library_ms": None,
-    }]
+    }, {**backward_row, "launches_by_path": by_path("factored_backward")}]
     check(all(row["launches"] > 0 for row in scan_rows + snmf_rows),
           "a kernel was launched on no path")
     log("done", seconds_after_device_phase=time.perf_counter() - t_start)

@@ -1,11 +1,14 @@
-"""DR-NMF model (inference side) and the SNMF enhancer."""
+"""DR-NMF model (inference and training sides) and the SNMF enhancer."""
 
+from .batched_grad import (batched_grad_residual_bytes, scan_factored_train,
+                           scan_factored_train_reference)
 from .drnmf import (DRNMF, DRNMFConfig, FoldedU, drnmf_forward,
-                    ensure_fold_valid, fold_structure_holds, make_scan,
-                    u_is_foldable)
+                    drnmf_trainable_mask, dropout_masks, ensure_fold_valid,
+                    fold_structure_holds, make_scan, u_is_foldable)
 from .snmf_enhancer import snmf_infer_irm
 
-__all__ = ["DRNMF", "DRNMFConfig", "FoldedU", "drnmf_forward",
+__all__ = ["DRNMF", "DRNMFConfig", "FoldedU", "batched_grad_residual_bytes",
+           "drnmf_forward", "drnmf_trainable_mask", "dropout_masks",
            "ensure_fold_valid", "fold_structure_holds", "make_scan",
-           "snmf_infer_irm",
-           "u_is_foldable"]
+           "scan_factored_train", "scan_factored_train_reference",
+           "snmf_infer_irm", "u_is_foldable"]

@@ -1,5 +1,5 @@
 """DR-NMF: deep recurrent NMF by unfolding iterative soft-thresholding
-(inference side; counterpart of ``drnmf_tpu/models/drnmf.py``).
+(counterpart of ``drnmf_tpu/models/drnmf.py``).
 
 Per timestep t, with h_{t-1} the previous top-layer state:
 
@@ -14,22 +14,35 @@ Parameters are the flat name -> tensor dict of *alternate* (log-domain)
 tensors; layouts are batch-major (B, T, F) in and (B, T, 2r) hidden.  Masked
 timesteps (all features == mask_value) hold the carried state.
 
-Routing of the recurrence (``_scan_hidden``), a rule and not an option.  A
-"plain" configuration is relu, input to every layer, top layer only:
+Routing of the recurrence (``make_scan``), a rule and not an option.  A
+"plain" configuration is relu, input to every layer, top layer only, and no
+dropout at this call:
 
 - plain, frozen U folded, S factored (every shipped model) ->
-  ``ops.drnmf_scan.drnmf_scan_factored``: kernel B1 on CUDA tensors;
+  ``ops.drnmf_scan.drnmf_scan_factored``: kernel B1 on CUDA tensors; when
+  gradients are needed (grad mode on and an operand requires one) ->
+  ``batched_grad.scan_factored_train``: B1 with every layer kept, then the
+  backward kernel ``drnmf_scan_factored_backward`` and one product per
+  weight gradient;
 - plain, U dense (U trains, or a checkpoint whose U broke the fold's
   structure, see ``ensure_fold_valid``) -> ``ops.drnmf_scan.drnmf_scan_dense``
-  with S materialised dense: kernel B3 on CUDA tensors;
-- anything else (another activation, no input to the layers,
+  with S materialised dense: kernel B3 on CUDA tensors; when gradients are
+  needed -> the plain time loop (B3 has no backward);
+- anything else (dropout, another activation, no input to the layers,
   ``return_all_hidden``, folded U with ``factored_S`` off) -> the plain time
-  loop in ``_scan_hidden``.
+  loop, with or without gradients (autograd through it).
 
-On CPU tensors both wrappers run their plain versions.  The recurrence can
-start from a carried state (B, 2r) instead of the model's ``h0``, which is
-how a stream continues from block to block (``streaming.py``).  Dropout and
-training belong to the training side.
+``ops.drnmf_scan.LAUNCHES`` counts each route: its kernels' launches, and
+``time_loop`` for each scan the time loop ran.  On CPU tensors the
+wrappers run their plain versions.  The recurrence can start from a
+carried state (B, 2r) instead of the model's ``h0``, which is how a stream
+continues from block to block (``streaming.py``).
+
+Training: ``drnmf_trainable_mask`` says which parameters train; the folded
+U fields are detached (the JAX package stops their gradient), so log_U1 and
+log_Uk get none on the fold route; variational dropout draws one keep mask
+per sequence over (B, 2r) and (B, F) from a ``torch.Generator``
+(``dropout_masks``), or takes the masks it is handed.
 """
 
 import dataclasses
@@ -40,7 +53,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.drnmf_scan import drnmf_scan_dense, drnmf_scan_factored
+from ..ops.drnmf_scan import LAUNCHES, drnmf_scan_dense, drnmf_scan_factored
+from .batched_grad import scan_factored_train
 
 _EPS7 = 1e-7
 
@@ -64,8 +78,10 @@ class DRNMFConfig:
     return_all_hidden: bool = False  # concat all K layers' hidden per step
     dropout_W: float = 0.0  # variational dropout: training only
     dropout_U: float = 0.0
-    # kept so configs carry across; the card runs every matmul in full f32
-    # either way ('default' and 'highest' compute the same here)
+    # kept so configs carry across; nothing reads it.  PyTorch's products
+    # (heads, glue, plain versions, weight gradients) run f32 with TF32 off
+    # (device.py), B1 and its backward kernel f32 on the CUDA cores, and B2
+    # and B3 error-compensated three-pass TF32, whatever this says
     matmul_precision: str = "default"
     # fold the frozen rank-one-structured U matrices into a row-sum
     # (exact up to float reassociation; off whenever U is trainable)
@@ -81,6 +97,20 @@ class DRNMFConfig:
         if base in self.params_untied:
             return [f"{base}_{k}" for k in range(self.K_layers)]
         return [base] * self.K_layers
+
+
+def drnmf_trainable_mask(config: DRNMFConfig, params: dict) -> dict:
+    """name -> True where a parameter trains: the listed
+    ``params_trainable`` (expanded per layer when untied), the initial state
+    (log_h0 or h0) and both head kernels."""
+    trainable = set()
+    for name in config.params_trainable:
+        if name in config.params_untied:
+            trainable.update(f"{name}_{k}" for k in range(config.K_layers))
+        else:
+            trainable.add(name)
+    trainable.update({"log_h0", "h0", "log_W_clean", "log_W_noise"})
+    return {k: (k in trainable) for k in params}
 
 
 class FoldedU:
@@ -193,11 +223,13 @@ def _effective_matrices(params: dict, config: DRNMFConfig,
 
     if u_is_foldable(config):
         # U1's off-diagonals are constant and Uk is a constant matrix; both
-        # patterns are symmetric, so the transpose is free
+        # patterns are symmetric, so the transpose is free.  Detached: the
+        # fold holds only for a frozen U (the JAX package stops the
+        # gradient), so log_U1 and log_Uk get none on this route
         U = FoldedU(
-            diag1=torch.exp(torch.diagonal(params["log_U1"])),
-            off1=torch.exp(params["log_U1"][0, 1]),
-            c=torch.exp(params["log_Uk"][0, 0]),
+            diag1=torch.exp(torch.diagonal(params["log_U1"])).detach(),
+            off1=torch.exp(params["log_U1"][0, 1]).detach(),
+            c=torch.exp(params["log_Uk"][0, 0]).detach(),
         )
     else:
         U = [torch.exp(params["log_U1"]).T] + [
@@ -254,11 +286,29 @@ def _h0(params, config):
     return params["h0"]
 
 
-def is_plain(config: DRNMFConfig) -> bool:
-    """The "plain" test of drnmf_tpu/models/drnmf.py:478-479 without its
-    dropout term: relu, input to every layer, top layer only."""
+def dropout_masks(config: DRNMFConfig, bsz: int, f: int, generator,
+                  device):
+    """Variational dropout's keep masks (b_u (B, 2r), b_w (B, F)), each
+    Bernoulli(1 - rate) scaled by 1/(1 - rate), one per sequence, drawn
+    with ``generator`` (b_u first); None for a rate of 0.  The JAX
+    package's ``_dropout_mask`` (Keras K.dropout)."""
+
+    def draw(rate, width):
+        if rate <= 0:
+            return None
+        keep = torch.rand((bsz, width), generator=generator,
+                          device=device) < 1.0 - rate
+        return keep.to(torch.float32) / (1.0 - rate)
+
+    return (draw(config.dropout_U, config.hidden_dim),
+            draw(config.dropout_W, f))
+
+
+def is_plain(config: DRNMFConfig, dropout: bool = False) -> bool:
+    """The "plain" test of drnmf_tpu/models/drnmf.py:478-479: relu, input to
+    every layer, top layer only, no dropout at this call."""
     return (config.activation == "relu" and config.connect_input_to_layers
-            and not config.return_all_hidden)
+            and not config.return_all_hidden and not dropout)
 
 
 def is_factored_plain(config: DRNMFConfig, U, S) -> bool:
@@ -335,12 +385,19 @@ def dense_scan_operands(params: dict, config: DRNMFConfig, x, step_mask,
                           _dense_weights(config, U, S, W, b), state)
 
 
+def _needs_grad(operands) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(a, torch.Tensor) and a.requires_grad for a in operands)
+
+
 def make_scan(params: dict, config: DRNMFConfig):
     """Prepare this model's recurrence once (the effective matrices and the
     kernels' weight stacks) and return ``run(x, step_mask, scan_fn=None,
-    state=None)``, which has the semantics of :func:`_scan_hidden`.  A
-    caller that scans many inputs with fixed parameters (a stream, block
-    after block) keeps the returned function."""
+    state=None, dropout=None)``, which has the semantics of
+    :func:`_scan_hidden` (``dropout``: the keep masks (b_u, b_w) of this
+    call, each a tensor or None).  A caller that scans many inputs with
+    fixed parameters (a stream, block after block) keeps the returned
+    function."""
     K, n2r = config.K_layers, config.hidden_dim
     dense_route = is_plain(config) and not u_is_foldable(config)
     U, S, W, b = _effective_matrices(params, config, dense_s=dense_route)
@@ -353,11 +410,17 @@ def make_scan(params: dict, config: DRNMFConfig):
     else:
         kernel = weights = None
 
-    def run(x, step_mask, scan_fn=None, state=None):
-        if kernel is not None:
-            scan = kernel if scan_fn is None else scan_fn
-            return scan(*_scan_operands(h0, config, x, step_mask, weights,
-                                        state))
+    def run(x, step_mask, scan_fn=None, state=None, dropout=None):
+        if kernel is not None and is_plain(config, dropout is not None):
+            operands = _scan_operands(h0, config, x, step_mask, weights, state)
+            if not _needs_grad(operands):
+                return (kernel if scan_fn is None else scan_fn)(*operands)
+            if kernel is drnmf_scan_factored:
+                return (scan_factored_train if scan_fn is None
+                        else scan_fn)(*operands)
+            # dense U with gradients: B3 has no backward, the loop below
+        LAUNCHES["time_loop"] += 1
+        b_u, b_w = (None, None) if dropout is None else dropout
         carry = _initial_state(h0, config, x.shape[0], state)
         if config.return_all_hidden:
             # carry = concat of all K layers' hidden; the recurrent input is
@@ -366,7 +429,12 @@ def make_scan(params: dict, config: DRNMFConfig):
         outs = []
         for t in range(x.shape[1]):
             h_prev = carry[:, -n2r:] if config.return_all_hidden else carry
-            layers = _cell_layers(config, U, S, W, b, h_prev, x[:, t])
+            x_t = x[:, t]
+            if b_u is not None:
+                h_prev = h_prev * b_u
+            if b_w is not None:
+                x_t = x_t * b_w
+            layers = _cell_layers(config, U, S, W, b, h_prev, x_t)
             out = (torch.cat(layers, dim=1) if config.return_all_hidden
                    else layers[-1])
             carry = torch.where(step_mask[:, t, None], out, carry)
@@ -379,18 +447,32 @@ def make_scan(params: dict, config: DRNMFConfig):
 
 
 def _scan_hidden(params: dict, config: DRNMFConfig, x, step_mask,
-                 scan_fn=None, state=None):
+                 scan_fn=None, state=None, training: bool = False,
+                 generator=None, dropout=None):
     """Run the recurrence.  x: (B, T, F); step_mask: (B, T) bool.
     Returns hidden states (B, T, 2r), or (B, T, K*2r) with
     ``return_all_hidden``.  The route follows the rule in the module
     docstring.  ``scan_fn`` replaces the route's kernel wrapper
-    (``drnmf_scan_factored`` or ``drnmf_scan_dense``; chip_smoke.py passes
-    the plain versions through ``enhance_signals`` to compare the whole
-    path on the card).  ``state`` (B, 2r) is the top layer's state to start
-    from in place of the model's h0; the state after the call is the last
-    step of the output (its last 2r columns)."""
+    (``drnmf_scan_factored``, ``drnmf_scan_dense`` or, with gradients,
+    ``scan_factored_train``; chip_smoke.py passes the plain versions to
+    compare whole paths on the card).  ``state`` (B, 2r) is the top layer's
+    state to start from in place of the model's h0; the state after the
+    call is the last step of the output (its last 2r columns).
+
+    ``training`` with ``dropout_U`` or ``dropout_W`` set applies
+    variational dropout: the keep masks ``dropout`` (b_u (B, 2r) or None,
+    b_w (B, F) or None) when given, else drawn from ``generator`` (a
+    ``torch.Generator`` on x's device); neither raises ``ValueError``.
+    Out of training both are ignored."""
+    if not (training and (config.dropout_U > 0 or config.dropout_W > 0)):
+        dropout = None
+    elif dropout is None:
+        if generator is None:
+            raise ValueError("dropout requires a generator at training time")
+        dropout = dropout_masks(config, x.shape[0], x.shape[-1], generator,
+                                x.device)
     return make_scan(params, config)(x, step_mask, scan_fn=scan_fn,
-                                     state=state)
+                                     state=state, dropout=dropout)
 
 
 def _heads(params: dict, config: DRNMFConfig, hidden):
@@ -418,13 +500,17 @@ def step_mask_from_input(x, mask_value: float):
 
 
 def drnmf_forward(params: dict, config: DRNMFConfig, x,
-                  return_parts: bool = False, scan_fn=None, state=None):
+                  return_parts: bool = False, scan_fn=None, state=None,
+                  training: bool = False, generator=None, dropout=None):
     """Noisy magnitude spectrogram (B, T, F) -> ratio mask (B, T, F).  With
     ``return_parts=True`` also returns (hidden, clean_est, noise_est).
-    ``scan_fn`` and ``state``: see ``_scan_hidden``."""
+    ``scan_fn``, ``state``, ``training``, ``generator`` and ``dropout``:
+    see ``_scan_hidden``.  Differentiable in ``params`` (the route with
+    gradients follows the module docstring)."""
     step_mask = step_mask_from_input(x, config.mask_value)
     hidden = _scan_hidden(params, config, x, step_mask, scan_fn=scan_fn,
-                          state=state)
+                          state=state, training=training,
+                          generator=generator, dropout=dropout)
     clean_est, noise_est = _heads(params, config, hidden)
     irm = _ratio_mask(clean_est, noise_est, config.transform_before_irm)
     if return_parts:
@@ -433,17 +519,22 @@ def drnmf_forward(params: dict, config: DRNMFConfig, x,
 
 
 class DRNMF(nn.Module):
-    """The model as a module: holds the flat parameter dict and runs
-    :func:`drnmf_forward`.  Inference only for now: the parameters do not
-    require gradients."""
+    """The model as a module: holds the flat parameter dict, each an
+    ``nn.Parameter`` that requires a gradient where
+    :func:`drnmf_trainable_mask` says it trains, and runs
+    :func:`drnmf_forward`, with dropout in training mode."""
 
     def __init__(self, config: DRNMFConfig, params: dict):
         super().__init__()
         self.config = config
+        trainable = drnmf_trainable_mask(config, params)
         self.params = nn.ParameterDict({
-            k: nn.Parameter(torch.as_tensor(v), requires_grad=False)
+            k: nn.Parameter(torch.as_tensor(v), requires_grad=trainable[k])
             for k, v in params.items()})
 
-    def forward(self, x, return_parts: bool = False):
+    def forward(self, x, return_parts: bool = False, generator=None,
+                dropout=None):
         return drnmf_forward(dict(self.params), self.config, x,
-                             return_parts=return_parts)
+                             return_parts=return_parts,
+                             training=self.training, generator=generator,
+                             dropout=dropout)

@@ -52,6 +52,13 @@
 // past B run on zeros and are never written out.  f32 FMA on the CUDA
 // cores; no tensor cores, no shared-memory-resident weights.
 //
+// Training (h_all set): the projection's epilogue also writes each layer's
+// hidden plane of each step, (K, N, T*Bp) with the batch innermost, so the
+// backward kernel (drnmf_scan_factored_bwd.cu) and the weight-gradient
+// products read it as it is; the last layer is written before a masked
+// step holds the carry.  It is an instantiation of its own (KEEP, with
+// its own capacity), so with h_all null the kernel is the one without it.
+//
 // Plain C interface (loaded with ctypes); launches on the caller's stream,
 // allocates nothing (the caller hands it the scratch), returns the CUDA
 // error code.
@@ -84,6 +91,7 @@ struct Params {
   float* rsp;                 // (2, G, Bp): partial rowsums by step parity
   float* rs;                  // (Bp): rowsums of the step's carry
   float* out;                 // (B, T, N)
+  float* h_all;               // (K, N, T*Bp) every layer's hidden, or null
   int B, Bp, T, F, N, K;
   int tn, tf;                 // column tiles of the projects, of BP
   int split, splits, groups;  // L, S, G
@@ -193,8 +201,9 @@ __device__ __forceinline__ void tile_product(const float* a,
 }
 
 // P_k: layer k's projection and epilogue over output tiles TM x TN of
-// (Bp x N).  srs holds the rowsums of the tile's rows.
-template <int TM, int TN>
+// (Bp x N).  srs holds the rowsums of the tile's rows.  KEEP: also write
+// the layer's plane of this step into h_all.
+template <int TM, int TN, bool KEEP>
 __device__ __forceinline__ void project_phase(const Params& p, int t, int k,
                                               float* smem, float* srs) {
   constexpr int RM = TM / 16;
@@ -258,6 +267,11 @@ __device__ __forceinline__ void project_phase(const Params& p, int t, int k,
                           off1 * srs[rl]
                     : c_uk * srs[rl] + __ldcg(hid_in + at);
           v = fmaxf(pre + acc[i][j] + __ldg(bias + col), 0.f);
+          // the training forward keeps every layer, the last one before
+          // a masked step takes the carry back (its backward tests v > 0)
+          if constexpr (KEEP)
+            p.h_all[((size_t)k * N + col) * ((size_t)p.T * Bp) +
+                    (size_t)t * Bp + row] = v;
           if (!last) {
             hid_out[at] = v;
           } else {
@@ -335,12 +349,12 @@ __device__ __forceinline__ void residual_phase(const Params& p, int t) {
   }
 }
 
-template <int TM>
+template <int TM, bool KEEP>
 __device__ __forceinline__ void project(const Params& p, int t, int k,
                                         float* smem, float* srs) {
-  if (p.tn == 16) project_phase<TM, 16>(p, t, k, smem, srs);
-  else if (p.tn == 32) project_phase<TM, 32>(p, t, k, smem, srs);
-  else project_phase<TM, 64>(p, t, k, smem, srs);
+  if (p.tn == 16) project_phase<TM, 16, KEEP>(p, t, k, smem, srs);
+  else if (p.tn == 32) project_phase<TM, 32, KEEP>(p, t, k, smem, srs);
+  else project_phase<TM, 64, KEEP>(p, t, k, smem, srs);
 }
 
 template <int TM>
@@ -351,7 +365,7 @@ __device__ __forceinline__ void back_project(const Params& p, int k,
   else back_project_phase<TM, 64>(p, k, smem);
 }
 
-template <int TM>
+template <int TM, bool KEEP>
 __global__ void __launch_bounds__(THREADS)
 drnmf_scan_factored_kernel(Params p) {
   __shared__ __align__(16) float smem[KT * (TM + MAX_TW)];
@@ -374,14 +388,14 @@ drnmf_scan_factored_kernel(Params p) {
   grid.sync();
 
   for (int t = 0; t < p.T; ++t) {
-    project<TM>(p, t, 0, smem, srs);
+    project<TM, KEEP>(p, t, 0, smem, srs);
     grid.sync();
     for (int k = 1; k < p.K; ++k) {
       back_project<TM>(p, k, smem);
       grid.sync();
       residual_phase(p, t);
       grid.sync();
-      project<TM>(p, t, k, smem, srs);
+      project<TM, KEEP>(p, t, k, smem, srs);
       grid.sync();
     }
   }
@@ -394,23 +408,24 @@ __global__ void __launch_bounds__(THREADS) grid_sync_probe_kernel(int n) {
 
 using Kernel = void (*)(Params);
 
-Kernel pick(int tm) {
-  if (tm == 16) return drnmf_scan_factored_kernel<16>;
-  if (tm == 32) return drnmf_scan_factored_kernel<32>;
-  if (tm == 64) return drnmf_scan_factored_kernel<64>;
+Kernel pick(int tm, bool keep) {
+  if (tm == 16) return keep ? drnmf_scan_factored_kernel<16, true>
+                            : drnmf_scan_factored_kernel<16, false>;
+  if (tm == 32) return keep ? drnmf_scan_factored_kernel<32, true>
+                            : drnmf_scan_factored_kernel<32, false>;
+  if (tm == 64) return keep ? drnmf_scan_factored_kernel<64, true>
+                            : drnmf_scan_factored_kernel<64, false>;
   return nullptr;
 }
 
 bool is_tile(int w) { return w == 16 || w == 32 || w == 64; }
 
-}  // namespace
-
 // The number of blocks of the tm-row kernel that the current device keeps
 // resident at once, which bounds the grid of a cooperative launch; 0 when
 // the device has no cooperative launch or tm is not built; a negative CUDA
 // error code on failure.
-extern "C" int drnmf_scan_factored_capacity(int tm) {
-  Kernel kernel = pick(tm);
+int capacity(int tm, bool keep) {
+  Kernel kernel = pick(tm, keep);
   if (kernel == nullptr) return 0;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -425,22 +440,33 @@ extern "C" int drnmf_scan_factored_capacity(int tm) {
   return coop ? sms * per_sm : 0;
 }
 
+}  // namespace
+
+extern "C" int drnmf_scan_factored_capacity(int tm) {
+  return capacity(tm, false);
+}
+
+// capacity of the kernel that keeps every layer (h_all set)
+extern "C" int drnmf_scan_factored_keep_capacity(int tm) {
+  return capacity(tm, true);
+}
+
 extern "C" int drnmf_scan_factored(
     const float* xT, const unsigned char* mask, const float* diag1,
     const float* off1, const float* c_uk, const float* dkt, const float* dka,
     const float* b, float* h, float* hid, float* part, float* resid,
-    float* rsp, float* rs, float* out, int B, int Bp, int T, int F, int N,
-    int K, int tm, int tn, int tf, int split, int splits, int groups,
-    int grid, void* stream) {
-  Kernel kernel = pick(tm);
+    float* rsp, float* rs, float* out, float* h_all, int B, int Bp, int T,
+    int F, int N, int K, int tm, int tn, int tf, int split, int splits,
+    int groups, int grid, void* stream) {
+  Kernel kernel = pick(tm, h_all != nullptr);
   if (kernel == nullptr || !is_tile(tn) || !is_tile(tf) || Bp % tm != 0 ||
       K < 1 || split < 1 || split % KT != 0 ||
       splits != (N + split - 1) / split || groups != (N + GROUP - 1) / GROUP ||
       grid < 1)
     return (int)cudaErrorInvalidValue;
-  Params p{xT,   mask, diag1, off1, c_uk, dkt, dka, b,     h,      hid,
-           part, resid, rsp,  rs,   out,  B,   Bp,  T,     F,      N,
-           K,    tn,   tf,    split, splits, groups};
+  Params p{xT,   mask,  diag1, off1, c_uk, dkt, dka, b,     h,      hid,
+           part, resid, rsp,   rs,   out,  h_all, B,  Bp,  T,     F,
+           N,    K,     tn,    tf,   split, splits, groups};
   void* args[] = {&p};
   cudaError_t err = cudaLaunchCooperativeKernel(
       (void*)kernel, dim3(grid), dim3(THREADS), args, 0, (cudaStream_t)stream);

@@ -12,6 +12,12 @@
   matrices, for a model whose U trains or whose checkpoint breaks the
   fold's structure.  Replaces ``_kernel`` (entry ``drnmf_scan_pallas``).
   CUDA C++ in ``csrc/drnmf_scan_dense.cu``.
+- ``drnmf_scan_factored_backward``: the reverse delta chain of B1's
+  function, the training backward.  The port's own kernel: the JAX package
+  runs it as an XLA scan (``drnmf_tpu/models/batched_grad.py::_bwd``,
+  ``back_step``).  CUDA C++ in ``csrc/drnmf_scan_factored_bwd.cu``, on
+  B1's tile loop.  The training forward is B1 with ``keep_layers=True``,
+  which also returns every layer's hidden state.
 
 All are built for ``sm_90a`` at first use (see ``build.py``).
 
@@ -39,19 +45,23 @@ on the tensor cores in error-compensated TF32 (three products a term, as
 B4/B5), transposed so that 2r rides the instruction's M axis and the
 batch its N axis (8 to 64 wide), its contraction ([h | hid | x_t] as one
 axis) cut into fixed stretches whose partials a second phase adds in
-stretch order (``dense_scan_plan``).  The source notes in the ``.cu``
+stretch order (``dense_scan_plan``).  The backward: 2(K−1) of B1's thin
+products per row and step, the layer stack read and the deltas written
+once (1.3 GB at B=32, T=500), so the bytes at the training batch, and
+like B1 the chain of dependent phases at a few rows; it runs B1's tile
+loop and plan with the phases mirrored.  The source notes in the ``.cu``
 files give the trade-offs.
 
-B1, B2 and B3 sum every output in a fixed order and use no atomics: a
-repeat is bit-equal, and the order of a row's sums does not depend on the
-batch it runs in.  B2 sums in another order than B1 (and on the tensor
+B1, B2, B3 and the backward sum every output in a fixed order and use no
+atomics: a repeat is bit-equal, and the order of a row's sums does not
+depend on the batch it runs in.  B2 sums in another order than B1 (and on the tensor
 cores), so the two agree within rounding.
 
 Each wrapper launches its kernel for CUDA tensors or raises; for CPU
 tensors it runs the plain version beside it
-(``drnmf_scan_factored_reference``, ``drnmf_scan_dense_reference``), which
-is the same function in eager PyTorch and the reference the kernel is held
-against.
+(``drnmf_scan_factored_reference``, ``drnmf_scan_dense_reference``,
+``drnmf_scan_factored_backward_reference``), which is the same function in
+eager PyTorch and the reference the kernel is held against.
 """
 
 import ctypes
@@ -60,14 +70,19 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import free_bytes
 from . import build
 
 SOURCE = "drnmf_scan_factored.cu"  # B1
 INTERLEAVED_SOURCE = "drnmf_scan_factored_interleaved.cu"  # B2
 DENSE_SOURCE = "drnmf_scan_dense.cu"  # B3
-# kernel launches since the last reset, by kernel; chip_smoke.py reads them
-# to show that the main path went through the kernels
-LAUNCHES = {"factored": 0, "interleaved": 0, "dense": 0}
+BACKWARD_SOURCE = "drnmf_scan_factored_bwd.cu"  # B1's backward
+# kernel launches since the last reset, by kernel, and ``time_loop``: the
+# scans that ran the model's plain PyTorch time loop instead (the route of
+# ``models.drnmf.make_scan``); chip_smoke.py reads them to show which route
+# each path went through
+LAUNCHES = {"factored": 0, "interleaved": 0, "dense": 0,
+            "factored_backward": 0, "time_loop": 0}
 # tile sides B1 is built for (rows, and columns of each product)
 DENSE_TILES = (16, 32, 64)
 # B1: rows of the back-projection's contraction one split sums (a multiple
@@ -100,10 +115,12 @@ def _error_strings(lib):
 def _library():
     lib = build.load(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.drnmf_scan_factored.argtypes = [ptr] * 15 + [i32] * 13 + [ptr]
+    lib.drnmf_scan_factored.argtypes = [ptr] * 16 + [i32] * 13 + [ptr]
     lib.drnmf_scan_factored.restype = i32
     lib.drnmf_scan_factored_capacity.argtypes = [i32]
     lib.drnmf_scan_factored_capacity.restype = i32
+    lib.drnmf_scan_factored_keep_capacity.argtypes = [i32]
+    lib.drnmf_scan_factored_keep_capacity.restype = i32
     lib.drnmf_grid_sync_probe.argtypes = [i32, i32, ptr]
     lib.drnmf_grid_sync_probe.restype = i32
     return _error_strings(lib)
@@ -122,6 +139,17 @@ def _interleaved_library():
 
 
 @functools.cache
+def _backward_library():
+    lib = build.load(BACKWARD_SOURCE)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.drnmf_scan_factored_backward.argtypes = [ptr] * 15 + [i32] * 13 + [ptr]
+    lib.drnmf_scan_factored_backward.restype = i32
+    lib.drnmf_scan_factored_backward_capacity.argtypes = [i32]
+    lib.drnmf_scan_factored_backward_capacity.restype = i32
+    return _error_strings(lib)
+
+
+@functools.cache
 def _dense_library():
     lib = build.load(DENSE_SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -133,27 +161,70 @@ def _dense_library():
 
 
 def drnmf_scan_factored_reference(x, step_mask, h0, diag1, off1, c_uk,
-                                  dkt_stack, dka_stack, b_stack):
+                                  dkt_stack, dka_stack, b_stack,
+                                  keep_layers: bool = False):
     """Plain PyTorch version of the kernel, in the arithmetic order of
     ``models.drnmf.u_terms``/``layer_pre``.  Arguments as for
-    :func:`drnmf_scan_factored`."""
-    k_layers = dka_stack.shape[0]
+    :func:`drnmf_scan_factored`; with ``keep_layers`` the layer stack has
+    Bp = B."""
+    bsz, k_layers, n2r = x.shape[0], dka_stack.shape[0], h0.shape[-1]
     h = h0
-    outs = []
+    outs, layers = [], []
     for t in range(x.shape[1]):
         x_t = x[:, t]
         rs = h.sum(dim=1, keepdim=True)
         hidden = torch.relu(h * (diag1 - off1) + off1 * rs
                             + x_t @ dka_stack[0] + b_stack[0])
+        step = [hidden]
         for k in range(1, k_layers):
             resid = x_t - hidden @ dkt_stack[k - 1]
             hidden = torch.relu(c_uk * rs + hidden + resid @ dka_stack[k]
                                 + b_stack[k])
+            step.append(hidden)
+        if keep_layers:
+            layers.append(torch.stack(step))
         h = torch.where(step_mask[:, t, None], hidden, h)
         outs.append(h)
-    if not outs:
-        return x.new_empty((x.shape[0], 0, h0.shape[-1]))
-    return torch.stack(outs, dim=1)
+    out = (torch.stack(outs, dim=1) if outs
+           else x.new_empty((bsz, 0, n2r)))
+    if not keep_layers:
+        return out
+    h_all = (torch.stack(layers).permute(1, 3, 0, 2).contiguous() if layers
+             else x.new_empty((k_layers, n2r, 0, bsz)))
+    return out, h_all
+
+
+def drnmf_scan_factored_backward_reference(g, step_mask, h_all, diag1, off1,
+                                           c_uk, dkt_stack, dka_stack):
+    """Plain PyTorch version of the backward kernel: ``back_step`` of
+    ``drnmf_tpu/models/batched_grad.py`` (:99-121) in its arithmetic order,
+    step by step from the last.  Arguments and results as for
+    :func:`drnmf_scan_factored_backward`."""
+    bsz, t_len, n2r = g.shape
+    k_layers, bp = h_all.shape[0], h_all.shape[3]
+    f = dka_stack.shape[1]
+    delta = g.new_zeros((k_layers, n2r, t_len, bp))
+    p_all = g.new_zeros((k_layers - 1, f, t_len, bp))
+    gamma = g.new_zeros((bsz, n2r))
+    m = step_mask.to(g.dtype)
+    for t in reversed(range(t_len)):
+        h_t = h_all[:, :, t, :bsz].transpose(1, 2)  # (K, B, 2r)
+        m_t = m[:, t, None]
+        go = g[:, t] + gamma
+        g_h = go * m_t
+        gamma_new = go * (1.0 - m_t)
+        for k in range(k_layers - 1, 0, -1):
+            d_k = g_h * (h_t[k] > 0)
+            delta[k, :, t, :bsz] = d_k.T
+            p = d_k @ dka_stack[k].T
+            p_all[k - 1, :, t, :bsz] = p.T
+            g_h = d_k - p @ dkt_stack[k - 1].T
+            gamma_new = gamma_new + c_uk * d_k.sum(dim=1, keepdim=True)
+        d_0 = g_h * (h_t[0] > 0)
+        delta[0, :, t, :bsz] = d_0.T
+        gamma = (gamma_new + d_0 * (diag1 - off1)
+                 + off1 * d_0.sum(dim=1, keepdim=True))
+    return delta, p_all, gamma
 
 
 def row_tile(bsz: int) -> int:
@@ -322,7 +393,8 @@ def _launch_interleaved(x, step_mask, h0, diag1, off1, c_uk, dkt_stack,
 
 
 def drnmf_scan_factored(x, step_mask, h0, diag1, off1, c_uk, dkt_stack,
-                        dka_stack, b_stack, interleave: bool = False):
+                        dka_stack, b_stack, interleave: bool = False,
+                        keep_layers: bool = False):
     """Folded + factored recurrence over the whole sequence.
 
     x (B, T, F) f32; step_mask (B, T) bool (True = valid step); h0 (B, 2r);
@@ -333,6 +405,11 @@ def drnmf_scan_factored(x, step_mask, h0, diag1, off1, c_uk, dkt_stack,
     ``interleave``: on the card, launch kernel B2 (the batch's halves as
     two chains of tensor-core products) instead of B1; the function
     computed is the same, for any B, summed in another order.
+    ``keep_layers`` (B1 only; the training forward): also return every
+    layer's hidden state of every step before a masked step holds the
+    carry, (K, 2r, T, Bp) with the batch innermost, Bp the batch padded to
+    B1's row tile on the card (B on the CPU; padded columns hold what the
+    kernel computed for zero rows): the layout the backward reads.
 
     On the card B1 and B2 need a device with cooperative launch; the
     wrapper raises otherwise, and with the shapes and the plan on any
@@ -371,15 +448,20 @@ def drnmf_scan_factored(x, step_mask, h0, diag1, off1, c_uk, dkt_stack,
             ("b_stack", b_stack, (k_layers, n2r), f32)]:
         build.check_operand(name, t, shape, dtype, dev)
 
+    if interleave and keep_layers:
+        raise ValueError("keep_layers is a flag of B1, not of B2")
     if dev.type == "cpu":
         return drnmf_scan_factored_reference(
             x, step_mask, h0, diag1, off1, c_uk, dkt_stack, dka_stack,
-            b_stack)
+            b_stack, keep_layers=keep_layers)
     if dev.type != "cuda":
         raise ValueError(f"drnmf_scan_factored runs on cuda or cpu, not {dev}")
 
     out = torch.empty((bsz, t_len, n2r), dtype=f32, device=dev)
     if bsz == 0 or t_len == 0:
+        if keep_layers:
+            return out, out.new_empty((k_layers, n2r, t_len,
+                                       -(-bsz // row_tile(bsz)) * row_tile(bsz)))
         return out
     shapes = f"(B={bsz}, T={t_len}, F={f}, 2r={n2r}, K={k_layers})"
     if interleave:
@@ -389,7 +471,8 @@ def drnmf_scan_factored(x, step_mask, h0, diag1, off1, c_uk, dkt_stack,
     lib = _library()
     with torch.cuda.device(dev):
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        capacity = lib.drnmf_scan_factored_capacity(row_tile(bsz))
+        capacity = (lib.drnmf_scan_factored_keep_capacity if keep_layers
+                    else lib.drnmf_scan_factored_capacity)(row_tile(bsz))
         if capacity < 1:
             why = ("the device has no cooperative launch, which orders the "
                    "phases across blocks" if capacity == 0 else
@@ -409,12 +492,16 @@ def drnmf_scan_factored(x, step_mask, h0, diag1, off1, c_uk, dkt_stack,
         resid = x.new_empty((f, bp))
         rsp = x.new_empty((2, plan.groups, bp))
         rs = x.new_empty((bp,))
+        # every element is written: each layer's epilogue covers (2r, Bp)
+        h_all = (x.new_empty((k_layers, n2r, t_len, bp)) if keep_layers
+                 else None)
         err = lib.drnmf_scan_factored(
             x_t.data_ptr(), step_mask.data_ptr(), diag1.data_ptr(),
             off1.data_ptr(), c_uk.data_ptr(), dkt_stack.data_ptr(),
             dka_stack.data_ptr(), b_stack.data_ptr(), carry.data_ptr(),
             hid.data_ptr(), part.data_ptr(), resid.data_ptr(),
-            rsp.data_ptr(), rs.data_ptr(), out.data_ptr(), bsz, bp, t_len,
+            rsp.data_ptr(), rs.data_ptr(), out.data_ptr(),
+            None if h_all is None else h_all.data_ptr(), bsz, bp, t_len,
             f, n2r, k_layers, plan.tm, plan.tn, plan.tf, plan.split,
             plan.splits, plan.groups, plan.grid,
             torch.cuda.current_stream(dev).cuda_stream)
@@ -423,7 +510,124 @@ def drnmf_scan_factored(x, step_mask, h0, diag1, off1, c_uk, dkt_stack,
         raise RuntimeError(f"drnmf_scan_factored launch failed: {msg} "
                            f"{shapes}, {plan}")
     LAUNCHES["factored"] += 1
-    return out
+    return out if h_all is None else (out, h_all)
+
+
+def drnmf_scan_factored_backward(g, step_mask, h_all, diag1, off1, c_uk,
+                                 dkt_stack, dka_stack):
+    """The reverse delta chain of the folded + factored recurrence: the
+    backward of ``drnmf_scan_factored``, ``back_step`` of
+    ``drnmf_tpu/models/batched_grad.py`` over every step from the last.
+
+    g (B, T, 2r) f32: the loss's gradient of the scan's output;
+    step_mask (B, T) bool; h_all (K, 2r, T, Bp): every layer's hidden
+    state, as ``drnmf_scan_factored(..., keep_layers=True)`` returns it;
+    diag1, off1, c_uk, dkt_stack, dka_stack as for the forward.  Returns
+    (delta (K, 2r, T, Bp): each layer's pre-activation gradient, zero in
+    padded columns and masked steps; p (K-1, F, T, Bp): ``d_k @ dka_k^T``
+    of each later layer; gamma (B, 2r): the gradient of h0).
+
+    On the card the kernel needs a device with cooperative launch and room
+    for its outputs and scratch (delta, p, g batch-innermost (T, 2r, Bp),
+    the split partials (S, F, Bp), the partial rowsums (K, G, Bp) and two
+    (2r, Bp) planes) in the card's free memory; the wrapper raises
+    otherwise, and with the shapes and the plan on any launch error.  It
+    makes dka^T (K-1, 2r, F) and Dhat (K-1, F, 2r) contiguous once a call.
+    """
+    if g.dim() != 3:
+        raise ValueError(f"g must be (B, T, 2r), got {tuple(g.shape)}")
+    bsz, t_len, n2r = g.shape
+    if h_all.dim() != 4:
+        raise ValueError(f"h_all must be (K, 2r, T, Bp), got "
+                         f"{tuple(h_all.shape)}")
+    k_layers, bp = h_all.shape[0], h_all.shape[3]
+    f = dka_stack.shape[1]
+    dev = g.device
+    f32 = torch.float32
+    off1 = off1.reshape(1) if isinstance(off1, torch.Tensor) else off1
+    c_uk = c_uk.reshape(1) if isinstance(c_uk, torch.Tensor) else c_uk
+    for name, t, shape, dtype in [
+            ("g", g, (bsz, t_len, n2r), f32),
+            ("step_mask", step_mask, (bsz, t_len), torch.bool),
+            ("h_all", h_all, (k_layers, n2r, t_len, bp), f32),
+            ("diag1", diag1, (n2r,), f32),
+            ("off1", off1, (1,), f32),
+            ("c_uk", c_uk, (1,), f32),
+            ("dkt_stack", dkt_stack, (max(1, k_layers - 1), n2r, f), f32),
+            ("dka_stack", dka_stack, (k_layers, f, n2r), f32)]:
+        build.check_operand(name, t, shape, dtype, dev)
+    if bp < bsz:
+        raise ValueError(f"h_all has {bp} columns a step, fewer than the "
+                         f"batch ({bsz})")
+
+    if dev.type == "cpu":
+        return drnmf_scan_factored_backward_reference(
+            g, step_mask, h_all, diag1, off1, c_uk, dkt_stack, dka_stack)
+    if dev.type != "cuda":
+        raise ValueError(f"drnmf_scan_factored_backward runs on cuda or cpu, "
+                         f"not {dev}")
+
+    gamma = g.new_zeros((bsz, n2r))
+    if bsz == 0 or t_len == 0:
+        return (g.new_zeros((k_layers, n2r, t_len, bp)),
+                g.new_zeros((k_layers - 1, f, t_len, bp)), gamma)
+    shapes = f"(B={bsz}, T={t_len}, F={f}, 2r={n2r}, K={k_layers})"
+    lib = _backward_library()
+    with torch.cuda.device(dev):
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        capacity = lib.drnmf_scan_factored_backward_capacity(row_tile(bsz))
+        if capacity < 1:
+            why = ("the device has no cooperative launch, which orders the "
+                   "phases across blocks" if capacity == 0 else
+                   lib.drnmf_cuda_error_string(-capacity).decode())
+            raise RuntimeError(f"drnmf_scan_factored_backward cannot run "
+                               f"here: {why} {shapes}")
+        plan = factored_scan_plan(bsz, f, n2r, n_sm, capacity)
+        if plan.bp != bp:
+            raise ValueError(f"h_all has {bp} columns a step, B1's row tile "
+                             f"gives {plan.bp} {shapes}")
+        need = 4 * ((k_layers * n2r + (k_layers - 1) * f + n2r) * t_len * bp
+                    + plan.splits * f * bp + k_layers * plan.groups * bp
+                    + 2 * n2r * bp + bp + 2 * max(1, k_layers - 1) * n2r * f)
+        free = free_bytes(dev)
+        if need > free:
+            raise RuntimeError(f"drnmf_scan_factored_backward needs {need} "
+                               f"bytes for its outputs and scratch, the card "
+                               f"has {free} free {shapes}: cut the batch or "
+                               f"the sequence length")
+        # outputs, every element written by the kernel; scratch: g
+        # batch-innermost and zero past the batch, the weights as the two
+        # products read them, the partials, the rowsums
+        delta = g.new_empty((k_layers, n2r, t_len, bp))
+        p_all = g.new_empty((k_layers - 1, f, t_len, bp))
+        g_t = g.new_zeros((t_len, n2r, bp))
+        g_t[:, :, :bsz] = g.permute(1, 2, 0)
+        if k_layers > 1:
+            dkat = dka_stack[1:].transpose(1, 2).contiguous()
+            dk = dkt_stack.transpose(1, 2).contiguous()
+        else:  # never read
+            dkat = dk = dkt_stack
+        gb = g.new_empty((n2r, bp))
+        part = g.new_empty((plan.splits, f, bp))
+        rsp = g.new_empty((k_layers, plan.groups, bp))
+        tot = g.new_empty((bp,))
+        gamma_t = g.new_empty((n2r, bp))
+        err = lib.drnmf_scan_factored_backward(
+            g_t.data_ptr(), step_mask.data_ptr(), h_all.data_ptr(),
+            diag1.data_ptr(), off1.data_ptr(), c_uk.data_ptr(),
+            dkat.data_ptr(), dk.data_ptr(), delta.data_ptr(),
+            p_all.data_ptr() if k_layers > 1 else None, gb.data_ptr(),
+            part.data_ptr(), rsp.data_ptr(), tot.data_ptr(),
+            gamma_t.data_ptr(), bsz, bp, t_len, f, n2r, k_layers, plan.tm,
+            plan.tn, plan.tf, plan.split, plan.splits, plan.groups,
+            plan.grid, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        msg = lib.drnmf_cuda_error_string(err).decode()
+        raise RuntimeError(f"drnmf_scan_factored_backward launch failed: "
+                           f"{msg} {shapes}, {plan}")
+    LAUNCHES["factored_backward"] += 1
+    gamma.copy_(gamma_t[:, :bsz].T)
+    return delta, p_all, gamma
 
 
 def drnmf_scan_dense_reference(x, step_mask, h0, u1, uk, s_stack, w_stack,

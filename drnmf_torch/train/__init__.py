@@ -1,7 +1,15 @@
-"""Checkpoints and the SNMF dictionary recipe (training the DR-NMF model
-itself belongs to a later slice of the port)."""
+"""Training: the DR-NMF model's loop (Keras-style Adam, early stopping,
+best-only checkpoints, the loss history), its losses, checkpoints, and the
+SNMF dictionary recipe that initialises the model."""
 
 from .checkpoint import load_checkpoint, save_checkpoint
+from .history import LossHistory
+from .loop import (KerasAdam, TrainConfig, evaluate, make_optimizer,
+                   make_train_step, train_model)
+from .losses import masked_mse_signal_approx, snmf_pretrain_loss
 from .snmf_recipe import train_snmf
 
-__all__ = ["load_checkpoint", "save_checkpoint", "train_snmf"]
+__all__ = ["KerasAdam", "LossHistory", "TrainConfig", "evaluate",
+           "load_checkpoint", "make_optimizer", "make_train_step",
+           "masked_mse_signal_approx", "save_checkpoint",
+           "snmf_pretrain_loss", "train_model", "train_snmf"]

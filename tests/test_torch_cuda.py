@@ -15,8 +15,12 @@ moves the output; rtol 1e-4 / atol 1e-5 as B1 (three TF32 products a term,
 the tensor cores' sums promoted to f32 every 128 terms: f32-class, summed
 in another order than cuBLAS).  B2 against B1: rtol 1e-4 / atol 1e-5
 (they sum in different orders; B2 as B3 on the tensor cores); a repeat of
-B1, B2 or B3 is bit-equal.  Each test walks its cases and names them in a
-failure message.
+B1, B2 or B3 is bit-equal.  Training: the backward kernel against its
+plain version on the same layer stack at rtol 1e-4 / atol 1e-5 (f32 on
+both sides, its products summed in another order than cuBLAS); the
+model's gradients through the kernels within 1e-4 of each gradient's
+largest entry of those through the plain versions.  Each test walks its
+cases and names them in a failure message.
 """
 
 import functools
@@ -27,8 +31,9 @@ import torch
 
 from drnmf_torch.convert import init_drnmf_params
 from drnmf_torch.enhance import enhance_signals
-from drnmf_torch.models import drnmf
+from drnmf_torch.models import batched_grad, drnmf
 from drnmf_torch.ops import drnmf_scan, snmf, snmf_mu
+from drnmf_torch.train.losses import masked_mse_signal_approx
 from drnmf_torch.streaming import MultiStreamEnhancer, StreamingEnhancer
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -137,6 +142,18 @@ def _row_bits_do_not_depend_on_the_batch(device):
         assert torch.equal(alone, full[row:row + 1]), row
 
 
+class Refusing:
+    """A kernel library whose entry ``name`` returns ``code``."""
+
+    def __init__(self, lib, name, code):
+        self.lib, self.name, self.code = lib, name, code
+
+    def __getattr__(self, name):
+        if name == self.name:
+            return lambda *a: self.code
+        return getattr(self.lib, name)
+
+
 def _refused_launch_raises(device, kernel="factored"):
     """A launch the gate refuses (a device without cooperative launch, or
     an error from the launch itself) raises with the shapes, counts no
@@ -160,16 +177,6 @@ def _refused_launch_raises(device, kernel="factored"):
                               "drnmf_scan_factored_interleaved")
             kwargs = {"interleave": True}
     wrapper = functools.partial(getattr(drnmf_scan, name), **kwargs)
-
-    class Refusing:
-        def __init__(self, lib, name, code):
-            self.lib, self.name, self.code = lib, name, code
-
-        def __getattr__(self, name):
-            if name == self.name:
-                return lambda *a: self.code
-            return getattr(self.lib, name)
-
     real = getattr(drnmf_scan, library)
     plain = getattr(drnmf_scan, name + "_reference")
 
@@ -241,7 +248,8 @@ def _enhance_matches_cpu(device):
 
 def _other_configs_run_plain_loop(device):
     """Configurations no kernel computes run the plain time loop on the
-    card, launch no kernel, and agree with the CPU."""
+    card (counted as ``time_loop``), launch no kernel, and agree with the
+    CPU."""
     for overrides in (
             dict(activation="tanh"), dict(factored_S=False),
             dict(activation="tanh", params_trainable=("log_D", "log_U1")),
@@ -252,7 +260,8 @@ def _other_configs_run_plain_loop(device):
         on_card = drnmf.drnmf_forward(params, cfg, x.to(device),
                                       return_parts=True)
         torch.cuda.synchronize()
-        assert drnmf_scan.LAUNCHES == before, overrides
+        assert drnmf_scan.LAUNCHES == {
+            **before, "time_loop": before["time_loop"] + 1}, overrides
         on_cpu = drnmf.drnmf_forward({k: v.cpu() for k, v in params.items()},
                                      cfg, x, return_parts=True)
         for a, b in zip(on_card, on_cpu):
@@ -597,3 +606,187 @@ def test_snmf_on_card(cuda):
     against the CPU."""
     _snmf_passes_match_plain(cuda)
     _sparse_nmf_matches_cpu(cuda)
+
+
+TRAIN_SHAPES = [  # (B, T, F, r, K)
+    (1, 1, 9, 8, 1),  # one row, one step
+    (3, 11, 9, 8, 2),
+    (5, 13, 9, 8, 5),  # odd B: rows past the batch
+    (3, 7, 33, 7, 2),  # odd 2r and F
+    (17, 9, 65, 50, 5),  # a 32-row tile, 15 rows past the batch
+    (1, 6, 257, 1000, 5),  # flagship widths, one row
+    (32, 6, 257, 1000, 5),  # flagship widths at the training batch
+    (33, 4, 257, 1000, 1),  # K = 1: no back-projection, dummy weights
+]
+
+
+def _train_operands(shape, device):
+    """B1's operands for a model of this shape, with a masked tail and a
+    masked step mid-sequence, and a gradient of the output g."""
+    bsz, t_len, f, r, K = shape
+    cfg, params, rng = _model(4, f, r, K, device)
+    x = rng.uniform(0, 1, (bsz, t_len, f)).astype(np.float32)
+    x[bsz // 2, min(3, t_len - 1):] = cfg.mask_value
+    if t_len > 2:
+        x[-1, t_len // 2] = cfg.mask_value
+    x = torch.from_numpy(x).to(device)
+    args = drnmf.factored_scan_operands(
+        params, cfg, x, drnmf.step_mask_from_input(x, cfg.mask_value))
+    g = torch.from_numpy(rng.standard_normal((bsz, t_len, 2 * r))
+                         .astype(np.float32)).to(device)
+    return args, g
+
+
+def _training_kernels_match_plain(device):
+    """B1 with every layer kept (top output bit-equal to B1 without the
+    flag, the layer stack against the plain loop's) and the backward
+    kernel against its plain version on that stack; a repeat bit-equal;
+    padded columns zero."""
+    for shape in TRAIN_SHAPES:
+        case = "B%d_T%d_F%d_r%d_K%d" % shape
+        args, g = _train_operands(shape, device)
+        bsz = shape[0]
+        before = dict(drnmf_scan.LAUNCHES)
+        out = drnmf_scan.drnmf_scan_factored(*args)
+        kept, h_all = drnmf_scan.drnmf_scan_factored(*args, keep_layers=True)
+        back_args = (g, args[1], h_all, *args[3:8])
+        grads = drnmf_scan.drnmf_scan_factored_backward(*back_args)
+        again = drnmf_scan.drnmf_scan_factored_backward(*back_args)
+        torch.cuda.synchronize()
+        assert drnmf_scan.LAUNCHES == {
+            **before, "factored": before["factored"] + 2,
+            "factored_backward": before["factored_backward"] + 2}, case
+        assert torch.equal(kept, out), case
+        _, ref_h = drnmf_scan.drnmf_scan_factored_reference(*args,
+                                                            keep_layers=True)
+        np.testing.assert_allclose(h_all[..., :bsz].cpu().numpy(),
+                                   ref_h.cpu().numpy(), err_msg=case, **TOL)
+        ref = drnmf_scan.drnmf_scan_factored_backward_reference(*back_args)
+        for name, got, rep, want in zip(("delta", "p", "gamma"), grads, again,
+                                        ref):
+            assert torch.equal(got, rep), f"{name} repeat {case}"
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       err_msg=f"{name} {case}", **TOL)
+            if name != "gamma":
+                assert not got[..., bsz:].any(), f"{name} padded {case}"
+
+
+def _training_rows_do_not_depend_on_the_batch(device):
+    """At the flagship widths and the training batch (32 rows), rows 0-15
+    as a 16-row call and rows 0 and 31 alone give the same layer stack and
+    the same deltas, p and gamma as those rows of the 32-row call, bit for
+    bit."""
+    args, g = _train_operands((32, 6, 257, 1000, 5), device)
+    _, h_all = drnmf_scan.drnmf_scan_factored(*args, keep_layers=True)
+    full = drnmf_scan.drnmf_scan_factored_backward(g, args[1], h_all,
+                                                   *args[3:8])
+    for sel in (slice(0, 16), slice(0, 1), slice(31, 32)):
+        rows = [a[sel].contiguous() if i < 3 else a
+                for i, a in enumerate(args)]
+        n = sel.stop - sel.start
+        _, h_rows = drnmf_scan.drnmf_scan_factored(*rows, keep_layers=True)
+        assert torch.equal(h_rows[..., :n], h_all[..., sel]), sel
+        got = drnmf_scan.drnmf_scan_factored_backward(
+            g[sel].contiguous(), rows[1], h_rows, *rows[3:8])
+        assert torch.equal(got[0][..., :n], full[0][..., sel]), sel
+        assert torch.equal(got[1][..., :n], full[1][..., sel]), sel
+        assert torch.equal(got[2], full[2][sel]), sel
+
+
+def _training_refusals_raise(device):
+    """The backward kernel refused (no cooperative launch, a launch error,
+    too little free memory) raises with the shapes, counts no launch and
+    never runs its plain version; the training scan refuses residuals
+    past its budget."""
+    args, g = _train_operands((3, 5, 9, 8, 3), device)
+    _, h_all = drnmf_scan.drnmf_scan_factored(*args, keep_layers=True)
+    back_args = (g, args[1], h_all, *args[3:8])
+    real = drnmf_scan._backward_library
+    plain = drnmf_scan.drnmf_scan_factored_backward_reference
+    free = drnmf_scan.free_bytes
+
+    def must_not_run(*a):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    drnmf_scan.drnmf_scan_factored_backward_reference = must_not_run
+    try:
+        for refused, code, match in (
+                ("drnmf_scan_factored_backward_capacity", 0,
+                 "no cooperative launch"),
+                ("drnmf_scan_factored_backward", 9,
+                 "B=3, T=5, F=9, 2r=16, K=3")):
+            refusing = Refusing(real(), refused, code)
+            drnmf_scan._backward_library = lambda: refusing
+            before = dict(drnmf_scan.LAUNCHES)
+            with pytest.raises(RuntimeError, match=match):
+                drnmf_scan.drnmf_scan_factored_backward(*back_args)
+            assert drnmf_scan.LAUNCHES == before, refused
+            drnmf_scan._backward_library = real
+        drnmf_scan.free_bytes = lambda dev: 0
+        with pytest.raises(RuntimeError, match="free"):
+            drnmf_scan.drnmf_scan_factored_backward(*back_args)
+    finally:
+        drnmf_scan._backward_library = real
+        drnmf_scan.drnmf_scan_factored_backward_reference = plain
+        drnmf_scan.free_bytes = free
+    budget = batched_grad.residual_budget
+    batched_grad.residual_budget = lambda dev: 0
+    try:
+        args[3].requires_grad_(True)
+        with pytest.raises(RuntimeError, match="cut the batch size"):
+            batched_grad.scan_factored_train(*args)
+    finally:
+        batched_grad.residual_budget = budget
+
+
+def _training_function_matches_plain(device):
+    """The masked-MSE loss's gradients through the model on the card (the
+    Function: B1 with every layer kept, the backward kernel, the products)
+    against the same loss with the scan forced to the Function's plain
+    versions and to autograd through the plain loop: within rtol 1e-4 of
+    each gradient's largest entry; the route launches B1 and the backward
+    kernel once and no time loop."""
+    for K in (1, 3):
+        cfg, params, rng = _model(5, 17, 12, K, device)
+        trains = drnmf.drnmf_trainable_mask(cfg, params)
+        for name, v in params.items():
+            v.requires_grad_(trains[name])
+        x = rng.uniform(0, 1, (5, 9, 17)).astype(np.float32)
+        x[2, 6:] = cfg.mask_value
+        y = torch.from_numpy(rng.uniform(0, 1, x.shape).astype(np.float32))
+        x, y = torch.from_numpy(x).to(device), y.to(device)
+        mask = drnmf.step_mask_from_input(x, cfg.mask_value).float()
+        names = sorted(k for k in params if trains[k])
+
+        def grads(scan_fn):
+            irm = drnmf.drnmf_forward(params, cfg, x, scan_fn=scan_fn)
+            loss = masked_mse_signal_approx(irm, x, y, mask)
+            return torch.autograd.grad(loss, [params[k] for k in names])
+
+        before = dict(drnmf_scan.LAUNCHES)
+        got = grads(None)
+        torch.cuda.synchronize()
+        assert drnmf_scan.LAUNCHES == {
+            **before, "factored": before["factored"] + 1,
+            "factored_backward": before["factored_backward"] + 1}, K
+        for scan_fn in (batched_grad.scan_factored_train_reference,
+                        drnmf_scan.drnmf_scan_factored_reference):
+            for name, a, b in zip(names, got, grads(scan_fn)):
+                err = (a - b).abs().max().item()
+                assert err <= 1e-4 * b.abs().max().item() + 1e-12, (
+                    K, name, scan_fn.__name__, err)
+
+
+@pytest.mark.cuda
+def test_training_on_card(cuda):
+    """Training's kernels on the card: B1 with every layer kept and the
+    backward kernel against their plain versions over a grid of shapes
+    (K = 1, 2, 5, odd B, F and 2r, masked tails and steps, the flagship
+    widths at 1, 32 and 33 rows), a bit-equal repeat, rows run alone equal
+    to the same rows of the batch bit for bit, refused launches and gates
+    that raise, and the model's gradients through them against the plain
+    versions."""
+    _training_kernels_match_plain(cuda)
+    _training_rows_do_not_depend_on_the_batch(cuda)
+    _training_refusals_raise(cuda)
+    _training_function_matches_plain(cuda)

@@ -161,9 +161,11 @@ def test_cell_step_module_and_fold_checks_match_jax(rng):
     tparams = params_from_numpy(params, "cpu")
     x = torch.from_numpy(_input(rng))
     model = tdrnmf.DRNMF(tcfg, tparams)
-    assert not any(p.requires_grad for p in model.parameters())
+    trainable = tdrnmf.drnmf_trainable_mask(tcfg, tparams)
+    assert {k: p.requires_grad for k, p in model.params.items()} == trainable
     np.testing.assert_array_equal(
-        model(x).numpy(), tdrnmf.drnmf_forward(tparams, tcfg, x).numpy())
+        model(x).detach().numpy(),
+        tdrnmf.drnmf_forward(tparams, tcfg, x).numpy())
 
     assert tdrnmf.fold_structure_holds(tparams)
     assert tdrnmf.fold_structure_holds(params) == jdrnmf.fold_structure_holds(

@@ -66,7 +66,7 @@ def build_variants():
             sys.exit(f"nvcc failed for {name}:\n{log}")
         lib = ctypes.CDLL(str(so))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.drnmf_scan_factored.argtypes = [ptr] * 15 + [i32] * 13 + [ptr]
+        lib.drnmf_scan_factored.argtypes = [ptr] * 16 + [i32] * 13 + [ptr]
         lib.drnmf_scan_factored.restype = i32
         lib.drnmf_scan_factored_capacity.argtypes = [i32]
         lib.drnmf_scan_factored_capacity.restype = i32
