@@ -33,7 +33,10 @@ Phases, each printing one JSON line:
               flagship at 32 rows and at one row over 64 steps, masked
               tails and a masked step mid-sequence; a bit-equal repeat,
               padded columns zero, and rows 0-15, 0 and 31 alone against
-              the same rows of the 32-row call, bit for bit.
+              the same rows of the 32-row call, bit for bit.  At the
+              flagship (every layer active there) the backward's streamed
+              instance too, forced, against the plain version and bit for
+              bit against the plan's.
    snmf_kernel -- B4 and B5 against their plain versions (and one whole MU
               iteration with half of W frozen) at the JAX hold-out shape, at
               shapes that cut every tile (n below one tile, n = 1, 2, 3 mod 4,
@@ -94,8 +97,9 @@ Phases, each printing one JSON line:
               synthetic noisy/clean magnitudes (``synth_magnitudes``, every
               fourth sequence padded past an early end): 2 epochs of 4
               batches and 32 validation sequences; each step launches B1
-              (every layer kept) and the backward kernel once, each
-              evaluation B1 once, the time loop never.  Then
+              (every layer kept) and the backward kernel once (its
+              launches by instance, resident or streamed weights, are
+              logged), each evaluation B1 once, the time loop never.  Then
               (``train_check``) one batch's gradients against autograd
               through ``drnmf_scan_factored_reference`` (within
               GRAD_RTOL_OF_MAX of each gradient's largest entry) and three
@@ -108,7 +112,10 @@ Phases, each printing one JSON line:
               share), and the forward, the backward kernel (and its plain
               version, its error at this shape) and the weight-gradient
               products each timed alone, each beside its bound
-              (``train_bounds``); heads, loss and Adam are the profiled
+              (``train_bounds``) and the share of it; the backward's plan
+              (instance, W, stripes, grid, shared bytes, grid syncs a
+              step), us a step at 32 rows and at one row (fails where a
+              share reads over 100%); heads, loss and Adam are the profiled
               device time left.  The trained model then enhances 4
               signals through B1 against its plain path
               (``train_parity``, the parity tolerance).
@@ -326,7 +333,8 @@ def reset_launches():
     """Set every kernel's launch count to 0 (just before a path is driven)."""
     from drnmf_torch.ops import drnmf_scan, snmf_mu
 
-    for counts in (drnmf_scan.LAUNCHES, snmf_mu.LAUNCHES):
+    for counts in (drnmf_scan.LAUNCHES, drnmf_scan.BACKWARD_INSTANCES,
+                   snmf_mu.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -1414,11 +1422,15 @@ def train_sequences(gen, n, config):
     return tuple(a.cpu().numpy() for a in (x, y, mask))
 
 
-def backward_check(args, g):
+def backward_check(args, g, streamed=False):
     """B1 with every layer kept against B1 without the flag (the top
     output bit for bit) and the plain loop's stack; the backward kernel
     against its plain version on that stack, a repeat bit-equal, padded
-    columns zero.  Returns (a log dict, ok, the stack)."""
+    columns zero; with ``streamed``, also the streamed instance (forced)
+    against the plain version and bit-equal to the plan's instance, and
+    every layer's deltas nonzero somewhere, so that both instances were
+    checked on every layer's weights.  Returns (a log dict, ok, the
+    stack)."""
     import torch
     from drnmf_torch.ops import drnmf_scan
 
@@ -1440,20 +1452,35 @@ def backward_check(args, g):
     padded_zero = not (got[0][..., bsz:].any() or got[1][..., bsz:].any())
     ok = (top_equal and repeat_equal and padded_zero
           and all(e[2] for e in errs.values()))
+    fields = {}
+    if streamed:
+        with drnmf_scan.streamed_backward():
+            other = drnmf_scan.drnmf_scan_factored_backward(*back_args)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("delta", "p", "gamma"), other, ref):
+            errs[f"streamed_{name}"] = compare(a, b)
+        fields["streamed_bit_equal"] = all(
+            torch.equal(a, b) for a, b in zip(other, got))
+        fields["layers_with_deltas"] = [bool(ref[0][k].any())
+                                        for k in range(ref[0].shape[0])]
+        ok = (ok and fields["streamed_bit_equal"]
+              and all(fields["layers_with_deltas"])
+              and all(e[2] for e in errs.values()))
     return ({"max_abs_err": {k: e[0] for k, e in errs.items()},
              "max_rel_err": {k: e[1] for k, e in errs.items()},
              "top_output_bit_equal": top_equal,
              "repeat_bit_equal": repeat_equal,
-             "padded_columns_zero": padded_zero}, ok, h_all)
+             "padded_columns_zero": padded_zero, **fields}, ok, h_all)
 
 
 def train_kernel_phase(config, params):
     """Phase 3 for training's kernels (``backward_check``) at a ragged
     small shape with K = 5, odd F and 2r with K = 2, K = 1 at the flagship
     widths, and the flagship at B = 32 and at one row over 64 steps, with
-    masked tails and a masked step mid-sequence; at the flagship's 32 rows,
-    rows 0-15 and rows 0 and 31 run alone against the same rows of the
-    32-row call, bit for bit.  These launches count for no path."""
+    masked tails and a masked step mid-sequence, and at the flagship the
+    streamed instance as well; at the flagship's 32 rows, rows 0-15 and
+    rows 0 and 31 run alone against the same rows of the 32-row call, bit
+    for bit.  These launches count for no path."""
     import torch
     from drnmf_torch.convert import init_drnmf_params
     from drnmf_torch.models.drnmf import DRNMFConfig
@@ -1483,7 +1510,8 @@ def train_kernel_phase(config, params):
             x[-1, 2] = cfg.mask_value
         args = scan_operands(cfg, prm, x)
         g = torch.randn((bsz, t_len, 2 * r), generator=gen, device="cuda")
-        fields, ok, h_all = backward_check(args, g)
+        fields, ok, h_all = backward_check(args, g, streamed=f == 257
+                                           and k == 5)
         log("train_kernel", case=name, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
             ok=ok, **fields)
         check(ok, f"B1 with every layer kept or the backward kernel "
@@ -1554,11 +1582,13 @@ def train_phase(card, config, params):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = read_launches()
+    instances = dict(drnmf_scan.BACKWARD_INSTANCES)
     steps = TRAIN_EPOCHS * TRAIN_BATCHES
     evals = TRAIN_EPOCHS  # one batch of up to 250 validation sequences
     epochs = hist.history["on_epoch_end"]
     saved, meta = load_checkpoint(savefile)
-    log("train", card=card, launches=launches, fit_seconds=fit_s,
+    log("train", card=card, launches=launches,
+        backward_launches_by_instance=instances, fit_seconds=fit_s,
         steps=steps, batch=TRAIN_BATCH, frames_a_sequence=TRAIN_T,
         epoch_loss=epochs["loss"], val_loss=epochs["val_loss"],
         batch_loss=hist.history["on_batch_end"]["loss"],
@@ -1712,6 +1742,17 @@ def train_phase(card, config, params):
     bwd_ms = cuda_ms(lambda: drnmf_scan.drnmf_scan_factored_backward(
         *back_args), 3)
     delta, p_all, gamma = drnmf_scan.drnmf_scan_factored_backward(*back_args)
+    # the backward's plan and its time at one row
+    plan = drnmf_scan.drnmf_scan_factored_backward_plan(
+        h_all.shape[3], args[0].shape[2], config.hidden_dim,
+        config.K_layers)
+    one = [a[:1].contiguous() if i < 3 else a for i, a in enumerate(args)]
+    _, h_one = drnmf_scan.drnmf_scan_factored(*one, keep_layers=True)
+    one_args = (g[:1].contiguous(), one[1], h_one, *one[3:8])
+    one_ms = cuda_ms(lambda: drnmf_scan.drnmf_scan_factored_backward(
+        *one_args), 3)
+    one_bound = train_bounds(one, n_trainable)["backward"]
+    del h_one, one_args
     no_dx = types.SimpleNamespace(needs_input_grad=(False, False))
     gemm_ms = cuda_ms(lambda: batched_grad._weight_grads(
         no_dx, args[0], h_all, delta, p_all, args[6], args[7]), 3)
@@ -1733,12 +1774,24 @@ def train_phase(card, config, params):
     parts = {
         "forward": {"ms": fwd_ms, "ms_profiled": kernel_ms["forward"]},
         "backward": {"ms": bwd_ms, "ms_profiled": kernel_ms["backward"],
-                     "plain_ms": plain_bwd_ms},
+                     "plain_ms": plain_bwd_ms,
+                     "instance": ("resident" if plan.resident
+                                  else "streamed"),
+                     "plan": plan._asdict(),
+                     "syncs_per_step": plan.syncs_per_step,
+                     "syncs_per_call": plan.syncs_per_step * TRAIN_T,
+                     "us_per_step": 1e3 * bwd_ms / TRAIN_T,
+                     "one_row": {"ms": one_ms,
+                                 "us_per_step": 1e3 * one_ms / TRAIN_T,
+                                 **{k: one_bound[k] for k in BOUND_KEYS},
+                                 **shares(one_bound, one_ms)}},
         "weight_grads": {"ms": gemm_ms},
         "heads_loss_adam": {"ms_profiled_rest": rest_ms}}
     for key, b in bounds.items():
         parts[key].update({k: b[k] for k in ("flops", "bytes",
                                                *BOUND_KEYS)})
+        if "ms" in parts[key]:
+            parts[key].update(shares(b, parts[key]["ms"]))
     log("train_times", card=card, shape=[TRAIN_BATCH, TRAIN_T],
         step_ms=step_ms, step_ms_runs=walls, steps_per_s=1e3 / step_ms,
         frames_per_s=valid_frames * 1e3 / step_ms,
@@ -1751,7 +1804,8 @@ def train_phase(card, config, params):
         device_ms_by_kernel=dict(list(prof["device_ms_by_kernel"].items())
                                  [:8]))
     check(all(v["ms"] >= bounds[k]["bound_ms"]
-              for k, v in parts.items() if "ms" in v),
+              for k, v in parts.items() if "ms" in v)
+          and one_ms >= one_bound["bound_ms"],
           f"a part of the train step reads faster than its bound: {parts}")
 
     # the trained model enhances through B1 as its plain path does

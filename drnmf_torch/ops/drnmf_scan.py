@@ -15,9 +15,9 @@
 - ``drnmf_scan_factored_backward``: the reverse delta chain of B1's
   function, the training backward.  The port's own kernel: the JAX package
   runs it as an XLA scan (``drnmf_tpu/models/batched_grad.py::_bwd``,
-  ``back_step``).  CUDA C++ in ``csrc/drnmf_scan_factored_bwd.cu``, on
-  B1's tile loop.  The training forward is B1 with ``keep_layers=True``,
-  which also returns every layer's hidden state.
+  ``back_step``).  CUDA C++ in ``csrc/drnmf_scan_factored_bwd.cu``: each
+  block owns fixed stripes of 2r.  The training forward is B1 with
+  ``keep_layers=True``, which also returns every layer's hidden state.
 
 All are built for ``sm_90a`` at first use (see ``build.py``).
 
@@ -48,9 +48,11 @@ axis) cut into fixed stretches whose partials a second phase adds in
 stretch order (``dense_scan_plan``).  The backward: 2(K−1) of B1's thin
 products per row and step, the layer stack read and the deltas written
 once (1.3 GB at B=32, T=500), so the bytes at the training batch, and
-like B1 the chain of dependent phases at a few rows; it runs B1's tile
-loop and plan with the phases mirrored.  The source notes in the ``.cu``
-files give the trade-offs.
+like B1 the chain of dependent phases at a few rows; each block owns
+fixed stripes of W columns of 2r for the whole scan, and the phases that
+need no other block's data are fused, 1 + 2(K−1) grid syncs a step
+(``backward_plan``).  The source notes in the ``.cu`` files give the
+trade-offs.
 
 B1, B2, B3 and the backward sum every output in a fixed order and use no
 atomics: a repeat is bit-equal, and the order of a row's sums does not
@@ -64,6 +66,7 @@ tensors it runs the plain version beside it
 eager PyTorch and the reference the kernel is held against.
 """
 
+import contextlib
 import ctypes
 import functools
 from typing import NamedTuple
@@ -103,6 +106,20 @@ DENSE_STRETCHES = 8
 INTERLEAVED_M_TILE = 64
 INTERLEAVED_BATCH_TILES = (8, 16)
 INTERLEAVED_BP_STRETCHES = 16
+# the backward: columns of 2r a stripe holds (W, as the kernel's
+# constant), the most sub-stretches a projection's contraction over F is cut
+# into, and the least stripes one chunk of a sum over stripes adds (more
+# where 2r is wider than BACKWARD_MAX_CHUNKS chunks of them)
+BACKWARD_STRIPE = 16
+BACKWARD_SUBS = 16
+BACKWARD_CHUNK = 16
+BACKWARD_MAX_CHUNKS = 32
+# the backward's launches by instance since the last reset (each also
+# counts in LAUNCHES["factored_backward"]): weights streamed from L2 with
+# each phase's operands, or resident in shared memory for the whole scan
+BACKWARD_INSTANCES = {"streamed": 0, "resident": 0}
+# within ``streamed_backward()``: the plan refuses the resident instance
+_RESIDENT_REFUSED = False
 
 
 def _error_strings(lib):
@@ -142,10 +159,14 @@ def _interleaved_library():
 def _backward_library():
     lib = build.load(BACKWARD_SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.drnmf_scan_factored_backward.argtypes = [ptr] * 15 + [i32] * 13 + [ptr]
+    lib.drnmf_scan_factored_backward.argtypes = [ptr] * 15 + [i32] * 16 + [ptr]
     lib.drnmf_scan_factored_backward.restype = i32
-    lib.drnmf_scan_factored_backward_capacity.argtypes = [i32]
+    lib.drnmf_scan_factored_backward_capacity.argtypes = [i32] * 3
     lib.drnmf_scan_factored_backward_capacity.restype = i32
+    lib.drnmf_scan_factored_backward_smem.argtypes = [i32] * 6
+    lib.drnmf_scan_factored_backward_smem.restype = i32
+    lib.drnmf_scan_factored_backward_max_smem.argtypes = []
+    lib.drnmf_scan_factored_backward_max_smem.restype = i32
     return _error_strings(lib)
 
 
@@ -529,10 +550,13 @@ def drnmf_scan_factored_backward(g, step_mask, h_all, diag1, off1, c_uk,
 
     On the card the kernel needs a device with cooperative launch and room
     for its outputs and scratch (delta, p, g batch-innermost (T, 2r, Bp),
-    the split partials (S, F, Bp), the partial rowsums (K, G, Bp) and two
-    (2r, Bp) planes) in the card's free memory; the wrapper raises
-    otherwise, and with the shapes and the plan on any launch error.  It
-    makes dka^T (K-1, 2r, F) and Dhat (K-1, F, 2r) contiguous once a call.
+    the stripes' partials (S, F, Bp), rowsums (S, Bp) and row totals
+    (2, S, Bp), two (2r, Bp) planes) in the card's free memory; the
+    wrapper raises otherwise, and with the shapes and the plan on any
+    launch error.  ``drnmf_scan_factored_backward_plan`` says how it is
+    cut.  Once a call it cuts Dhat (K-1, F, 2r) and dka^T (K-1, 2r, Fp)
+    into stripes of W columns of 2r, each stripe one contiguous block
+    (zero past 2r and past F).
     """
     if g.dim() != 3:
         raise ValueError(f"g must be (B, T, 2r), got {tuple(g.shape)}")
@@ -572,62 +596,167 @@ def drnmf_scan_factored_backward(g, step_mask, h_all, diag1, off1, c_uk,
         return (g.new_zeros((k_layers, n2r, t_len, bp)),
                 g.new_zeros((k_layers - 1, f, t_len, bp)), gamma)
     shapes = f"(B={bsz}, T={t_len}, F={f}, 2r={n2r}, K={k_layers})"
+    b1_bp = -(-bsz // row_tile(bsz)) * row_tile(bsz)
+    if bp != b1_bp:
+        raise ValueError(f"h_all has {bp} columns a step, B1's row tile "
+                         f"gives {b1_bp} {shapes}")
     lib = _backward_library()
     with torch.cuda.device(dev):
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        capacity = lib.drnmf_scan_factored_backward_capacity(row_tile(bsz))
-        if capacity < 1:
+        plan = drnmf_scan_factored_backward_plan(bp, f, n2r, k_layers)
+        if plan.capacity < 1:
             why = ("the device has no cooperative launch, which orders the "
-                   "phases across blocks" if capacity == 0 else
-                   lib.drnmf_cuda_error_string(-capacity).decode())
+                   "phases across blocks" if plan.capacity == 0 else
+                   lib.drnmf_cuda_error_string(-plan.capacity).decode())
             raise RuntimeError(f"drnmf_scan_factored_backward cannot run "
                                f"here: {why} {shapes}")
-        plan = factored_scan_plan(bsz, f, n2r, n_sm, capacity)
-        if plan.bp != bp:
-            raise ValueError(f"h_all has {bp} columns a step, B1's row tile "
-                             f"gives {plan.bp} {shapes}")
-        need = 4 * ((k_layers * n2r + (k_layers - 1) * f + n2r) * t_len * bp
-                    + plan.splits * f * bp + k_layers * plan.groups * bp
-                    + 2 * n2r * bp + bp + 2 * max(1, k_layers - 1) * n2r * f)
+        n_stripe = plan.stripes * plan.stripe
+        n_w = max(1, k_layers - 1)
+        need = (4 * ((k_layers * n2r + (k_layers - 1) * f + n2r) * t_len * bp
+                     + (plan.stripes * f + 3 * plan.stripes + 2 * n2r) * bp
+                     + 2 * n_w * n_stripe * plan.fp + n_stripe)
+                + t_len * bp)
         free = free_bytes(dev)
         if need > free:
             raise RuntimeError(f"drnmf_scan_factored_backward needs {need} "
                                f"bytes for its outputs and scratch, the card "
                                f"has {free} free {shapes}: cut the batch or "
                                f"the sequence length")
-        # outputs, every element written by the kernel; scratch: g
-        # batch-innermost and zero past the batch, the weights as the two
-        # products read them, the partials, the rowsums
+        # outputs, every element written by the kernel; scratch: g and the
+        # step mask batch-innermost and zero past the batch, diag1 and the
+        # weights cut into stripes of W columns of 2r (zero past 2r and
+        # past F), the partials, the stripes' rowsums and row totals
         delta = g.new_empty((k_layers, n2r, t_len, bp))
         p_all = g.new_empty((k_layers - 1, f, t_len, bp))
         g_t = g.new_zeros((t_len, n2r, bp))
         g_t[:, :, :bsz] = g.permute(1, 2, 0)
         if k_layers > 1:
-            dkat = dka_stack[1:].transpose(1, 2).contiguous()
-            dk = dkt_stack.transpose(1, 2).contiguous()
+            pad = torch.nn.functional.pad
+            wdk = (pad(dkt_stack, (0, 0, 0, n_stripe - n2r))
+                   .reshape(k_layers - 1, plan.stripes, plan.stripe, f)
+                   .transpose(2, 3).contiguous())
+            wdkat = (pad(dka_stack[1:], (0, n_stripe - n2r, 0, plan.fp - f))
+                     .reshape(k_layers - 1, plan.fp, plan.stripes, plan.stripe)
+                     .permute(0, 2, 3, 1).contiguous())
         else:  # never read
-            dkat = dk = dkt_stack
+            wdk = wdkat = dkt_stack
+        mask_t = step_mask.new_zeros((t_len, bp), dtype=torch.uint8)
+        mask_t[:, :bsz] = step_mask.T
+        diag1_s = torch.nn.functional.pad(diag1, (0, n_stripe - n2r))
         gb = g.new_empty((n2r, bp))
-        part = g.new_empty((plan.splits, f, bp))
-        rsp = g.new_empty((k_layers, plan.groups, bp))
-        tot = g.new_empty((bp,))
+        part = g.new_empty((plan.stripes, f, bp))
+        rsu = g.new_empty((plan.stripes, bp))
+        rowtot = g.new_empty((2, plan.stripes, bp))
         gamma_t = g.new_empty((n2r, bp))
         err = lib.drnmf_scan_factored_backward(
-            g_t.data_ptr(), step_mask.data_ptr(), h_all.data_ptr(),
-            diag1.data_ptr(), off1.data_ptr(), c_uk.data_ptr(),
-            dkat.data_ptr(), dk.data_ptr(), delta.data_ptr(),
+            g_t.data_ptr(), mask_t.data_ptr(), h_all.data_ptr(),
+            diag1_s.data_ptr(), off1.data_ptr(), c_uk.data_ptr(),
+            wdkat.data_ptr(), wdk.data_ptr(), delta.data_ptr(),
             p_all.data_ptr() if k_layers > 1 else None, gb.data_ptr(),
-            part.data_ptr(), rsp.data_ptr(), tot.data_ptr(),
-            gamma_t.data_ptr(), bsz, bp, t_len, f, n2r, k_layers, plan.tm,
-            plan.tn, plan.tf, plan.split, plan.splits, plan.groups,
-            plan.grid, torch.cuda.current_stream(dev).cuda_stream)
+            part.data_ptr(), rsu.data_ptr(), rowtot.data_ptr(),
+            gamma_t.data_ptr(), bsz, bp, t_len, f, plan.fp, n2r, k_layers,
+            plan.rt, int(plan.resident), plan.stripes, plan.sub, plan.subs, plan.chunk, plan.chunks, plan.smem,
+            plan.grid,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.drnmf_cuda_error_string(err).decode()
         raise RuntimeError(f"drnmf_scan_factored_backward launch failed: "
                            f"{msg} {shapes}, {plan}")
     LAUNCHES["factored_backward"] += 1
+    BACKWARD_INSTANCES["resident" if plan.resident else "streamed"] += 1
     gamma.copy_(gamma_t[:, :bsz].T)
     return delta, p_all, gamma
+
+
+class BackwardPlan(NamedTuple):
+    """How the backward kernel cuts its phases (``backward_plan``)."""
+    rt: int  # rows of a row tile (16 or 32; a block's item loops over them)
+    stripe: int  # W: columns of 2r a stripe holds
+    stripes: int  # S = ceil(2r / W): the partials of a back-projection
+    fp: int  # F padded to a multiple of 4: the rows of dka^T's stripes
+    sub: int  # depths of F one sub-stretch of a projection sums
+    subs: int  # sub-stretches, ceil(F / sub)
+    chunk: int  # stripes one chunk of a sum over stripes adds
+    chunks: int  # ceil(S / chunk), at most BACKWARD_MAX_CHUNKS
+    resident: bool  # every later layer's weight stripes in shared memory
+    smem: int  # dynamic shared-memory bytes a block takes
+    capacity: int  # co-resident blocks of the instance (< 1: refused)
+    grid: int  # blocks of the cooperative launch
+    syncs_per_step: int  # grid syncs a step, 1 + 2(K-1)
+
+
+def backward_plan(bp: int, f: int, n2r: int, k_layers: int, max_smem: int,
+                  capacity, smem_bytes) -> BackwardPlan:
+    """The backward kernel's cut for B1's padded batch ``bp`` on a card
+    whose blocks may take ``max_smem`` bytes of dynamic shared memory;
+    ``capacity(rt, resident, smem)`` gives the co-resident blocks of an
+    instance and ``smem_bytes(rt, resident, f, stripes, k_layers, subs)``
+    the shared memory a block of it takes (the kernel's
+    ``drnmf_scan_factored_backward_smem``).
+
+    W (``BACKWARD_STRIPE``), the sub-stretches of F (at most
+    BACKWARD_SUBS of equal depth) and the chunks of stripes (at least
+    BACKWARD_CHUNK stripes, at most BACKWARD_MAX_CHUNKS chunks) depend on
+    (F, 2r) alone, so a row's bits do not depend on the batch, the grid
+    or the instance.
+    The row tile is 16 rows where B1 pads the batch to 16, else 32.  The
+    resident instance runs where K > 1, its bytes fit and the card keeps
+    a block for every stripe at once (block b owns stripe b); else the
+    streamed one, whose grid is the stripes, at most its capacity."""
+    rt = 32 if bp % 32 == 0 else 16
+    stripe = BACKWARD_STRIPE
+    stripes = -(-n2r // stripe)
+    sub = -(-f // BACKWARD_SUBS)
+    subs = -(-f // sub)
+    chunk = max(BACKWARD_CHUNK, -(-stripes // BACKWARD_MAX_CHUNKS))
+    chunks = -(-stripes // chunk)
+
+    def smem(resident):
+        return smem_bytes(rt, resident, f, stripes, k_layers, subs)
+
+    resident = False
+    if k_layers > 1 and smem(True) <= max_smem:
+        cap = capacity(rt, True, smem(True))
+        resident = cap >= stripes
+    if not resident:
+        cap = capacity(rt, False, smem(False))
+    return BackwardPlan(rt, stripe, stripes, -(-f // 4) * 4, sub, subs,
+                        chunk, chunks, resident, smem(resident), cap,
+                        max(1, min(stripes, cap)), 1 + 2 * (k_layers - 1))
+
+
+def drnmf_scan_factored_backward_plan(bp: int, f: int, n2r: int,
+                                      k_layers: int) -> BackwardPlan:
+    """``backward_plan`` on the current card: the plan a call of
+    ``drnmf_scan_factored_backward`` with B1's padded batch ``bp`` uses
+    (the streamed instance within ``streamed_backward()``).  Builds and
+    loads the kernel."""
+    lib = _backward_library()
+
+    def capacity(rt, resident, smem):
+        if resident and _RESIDENT_REFUSED:
+            return 0
+        return lib.drnmf_scan_factored_backward_capacity(rt, int(resident),
+                                                         smem)
+
+    return backward_plan(
+        bp, f, n2r, k_layers, lib.drnmf_scan_factored_backward_max_smem(),
+        capacity,
+        lambda rt, res, *cut: lib.drnmf_scan_factored_backward_smem(
+            rt, int(res), *cut))
+
+
+@contextlib.contextmanager
+def streamed_backward():
+    """Within: the backward's plan refuses the resident instance, as on a
+    card that keeps too few of its blocks at once, so the weights stream
+    from L2.  For the card checks, which hold the streamed instance
+    against the plain version and the resident one."""
+    global _RESIDENT_REFUSED
+    before, _RESIDENT_REFUSED = _RESIDENT_REFUSED, True
+    try:
+        yield
+    finally:
+        _RESIDENT_REFUSED = before
 
 
 def drnmf_scan_dense_reference(x, step_mask, h0, u1, uk, s_stack, w_stack,

@@ -23,6 +23,7 @@ largest entry of those through the plain versions.  Each test walks its
 cases and names them in a failure message.
 """
 
+import contextlib
 import functools
 
 import numpy as np
@@ -51,7 +52,7 @@ def _model(seed, f, r, K, device, **overrides):
     w = rng.uniform(0.05, 1.0, (f, 2 * r)).astype(np.float32)
     w /= np.sqrt(np.sum(w**2, axis=0))
     cfg = drnmf.DRNMFConfig(input_dim=f, r=r, output_dim=f, K_layers=K,
-                            alph=10.0, lam1=0.5, **overrides)
+                            **{"alph": 10.0, "lam1": 0.5, **overrides})
     params = init_drnmf_params(cfg, w,
                                generator=torch.Generator().manual_seed(seed),
                                device=device)
@@ -617,14 +618,17 @@ TRAIN_SHAPES = [  # (B, T, F, r, K)
     (1, 6, 257, 1000, 5),  # flagship widths, one row
     (32, 6, 257, 1000, 5),  # flagship widths at the training batch
     (33, 4, 257, 1000, 1),  # K = 1: no back-projection, dummy weights
+    (65, 4, 33, 20, 3),  # the backward's four 32-row tiles, three stripes
 ]
 
 
-def _train_operands(shape, device):
+def _train_operands(shape, device, alph=10.0):
     """B1's operands for a model of this shape, with a masked tail and a
-    masked step mid-sequence, and a gradient of the output g."""
+    masked step mid-sequence, and a gradient of the output g.  At alph =
+    2000 every layer is active at these shapes (at 10 the wide ones have
+    dead layers, whose deltas are zero)."""
     bsz, t_len, f, r, K = shape
-    cfg, params, rng = _model(4, f, r, K, device)
+    cfg, params, rng = _model(4, f, r, K, device, alph=alph)
     x = rng.uniform(0, 1, (bsz, t_len, f)).astype(np.float32)
     x[bsz // 2, min(3, t_len - 1):] = cfg.mask_value
     if t_len > 2:
@@ -641,10 +645,13 @@ def _training_kernels_match_plain(device):
     """B1 with every layer kept (top output bit-equal to B1 without the
     flag, the layer stack against the plain loop's) and the backward
     kernel against its plain version on that stack; a repeat bit-equal;
-    padded columns zero."""
-    for shape in TRAIN_SHAPES:
-        case = "B%d_T%d_F%d_r%d_K%d" % shape
-        args, g = _train_operands(shape, device)
+    padded columns zero.  Where K >= 3, also with every layer active
+    (alph = 2000), and the streamed instance (forced) bit-equal to the
+    plan's on both."""
+    for shape, alph in [(s, a) for s in TRAIN_SHAPES
+                        for a in ((10.0, 2000.0) if s[4] >= 3 else (10.0,))]:
+        case = "B%d_T%d_F%d_r%d_K%d" % shape + f" alph={alph}"
+        args, g = _train_operands(shape, device, alph)
         bsz = shape[0]
         before = dict(drnmf_scan.LAUNCHES)
         out = drnmf_scan.drnmf_scan_factored(*args)
@@ -669,14 +676,26 @@ def _training_kernels_match_plain(device):
                                        err_msg=f"{name} {case}", **TOL)
             if name != "gamma":
                 assert not got[..., bsz:].any(), f"{name} padded {case}"
+        if alph == 2000.0:
+            assert all(ref[0][k].any() for k in range(shape[4])), case
+        if shape[4] >= 3:
+            before = dict(drnmf_scan.BACKWARD_INSTANCES)
+            with drnmf_scan.streamed_backward():
+                streamed = drnmf_scan.drnmf_scan_factored_backward(
+                    *back_args)
+            assert drnmf_scan.BACKWARD_INSTANCES == {
+                **before, "streamed": before["streamed"] + 1}, case
+            for name, a, b in zip(("delta", "p", "gamma"), streamed, grads):
+                assert torch.equal(a, b), f"{name} streamed {case}"
 
 
-def _training_rows_do_not_depend_on_the_batch(device):
+def _training_rows_do_not_depend_on_the_batch(device, alph):
     """At the flagship widths and the training batch (32 rows), rows 0-15
     as a 16-row call and rows 0 and 31 alone give the same layer stack and
     the same deltas, p and gamma as those rows of the 32-row call, bit for
-    bit."""
-    args, g = _train_operands((32, 6, 257, 1000, 5), device)
+    bit; the plan keeps the weights resident, and the streamed instance
+    gives the same bits."""
+    args, g = _train_operands((32, 6, 257, 1000, 5), device, alph)
     _, h_all = drnmf_scan.drnmf_scan_factored(*args, keep_layers=True)
     full = drnmf_scan.drnmf_scan_factored_backward(g, args[1], h_all,
                                                    *args[3:8])
@@ -691,13 +710,29 @@ def _training_rows_do_not_depend_on_the_batch(device):
         assert torch.equal(got[0][..., :n], full[0][..., sel]), sel
         assert torch.equal(got[1][..., :n], full[1][..., sel]), sel
         assert torch.equal(got[2], full[2][sel]), sel
+    # the backward's two instances: at the training batch the plan keeps
+    # the weights resident; refused that, it streams them, with the same
+    # bits
+    plan = drnmf_scan.drnmf_scan_factored_backward_plan(32, 257, 2000, 5)
+    assert plan.resident and plan.syncs_per_step == 9, plan
+    assert plan.smem == 210_752, plan  # the kernel's layout, as planned
+    with drnmf_scan.streamed_backward():
+        assert not drnmf_scan.drnmf_scan_factored_backward_plan(
+            32, 257, 2000, 5).resident
+        before = dict(drnmf_scan.BACKWARD_INSTANCES)
+        streamed = drnmf_scan.drnmf_scan_factored_backward(
+            g, args[1], h_all, *args[3:8])
+        assert drnmf_scan.BACKWARD_INSTANCES == {
+            **before, "streamed": before["streamed"] + 1}
+    for name, a, b in zip(("delta", "p", "gamma"), streamed, full):
+        assert torch.equal(a, b), f"streamed against resident: {name} {alph}"
 
 
 def _training_refusals_raise(device):
-    """The backward kernel refused (no cooperative launch, a launch error,
-    too little free memory) raises with the shapes, counts no launch and
-    never runs its plain version; the training scan refuses residuals
-    past its budget."""
+    """The backward kernel refused (no cooperative launch, a launch error
+    of the resident or the streamed instance, too little free memory)
+    raises with the shapes, counts no launch and never runs its plain
+    version; the training scan refuses residuals past its budget."""
     args, g = _train_operands((3, 5, 9, 8, 3), device)
     _, h_all = drnmf_scan.drnmf_scan_factored(*args, keep_layers=True)
     back_args = (g, args[1], h_all, *args[3:8])
@@ -715,12 +750,16 @@ def _training_refusals_raise(device):
                  "no cooperative launch"),
                 ("drnmf_scan_factored_backward", 9,
                  "B=3, T=5, F=9, 2r=16, K=3")):
-            refusing = Refusing(real(), refused, code)
-            drnmf_scan._backward_library = lambda: refusing
-            before = dict(drnmf_scan.LAUNCHES)
-            with pytest.raises(RuntimeError, match=match):
-                drnmf_scan.drnmf_scan_factored_backward(*back_args)
-            assert drnmf_scan.LAUNCHES == before, refused
+            for instance in (contextlib.nullcontext,
+                             drnmf_scan.streamed_backward):
+                refusing = Refusing(real(), refused, code)
+                drnmf_scan._backward_library = lambda: refusing
+                before = (dict(drnmf_scan.LAUNCHES),
+                          dict(drnmf_scan.BACKWARD_INSTANCES))
+                with instance(), pytest.raises(RuntimeError, match=match):
+                    drnmf_scan.drnmf_scan_factored_backward(*back_args)
+                assert (drnmf_scan.LAUNCHES,
+                        drnmf_scan.BACKWARD_INSTANCES) == before, refused
             drnmf_scan._backward_library = real
         drnmf_scan.free_bytes = lambda dev: 0
         with pytest.raises(RuntimeError, match="free"):
@@ -781,12 +820,15 @@ def _training_function_matches_plain(device):
 def test_training_on_card(cuda):
     """Training's kernels on the card: B1 with every layer kept and the
     backward kernel against their plain versions over a grid of shapes
-    (K = 1, 2, 5, odd B, F and 2r, masked tails and steps, the flagship
-    widths at 1, 32 and 33 rows), a bit-equal repeat, rows run alone equal
-    to the same rows of the batch bit for bit, refused launches and gates
-    that raise, and the model's gradients through them against the plain
-    versions."""
+    (K = 1, 2, 3, 5, odd B, F and 2r, masked tails and steps, 65 rows, the
+    flagship widths at 1, 32 and 33 rows; where K >= 3 also with every
+    layer active), a bit-equal repeat, rows run alone equal to the same
+    rows of the batch bit for bit, the backward's streamed instance
+    bit-equal to the plan's, refused launches of either instance and
+    gates that raise, and the model's gradients through them against the
+    plain versions."""
     _training_kernels_match_plain(cuda)
-    _training_rows_do_not_depend_on_the_batch(cuda)
+    for alph in (10.0, 2000.0):
+        _training_rows_do_not_depend_on_the_batch(cuda, alph)
     _training_refusals_raise(cuda)
     _training_function_matches_plain(cuda)

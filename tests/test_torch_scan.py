@@ -168,6 +168,102 @@ def test_factored_scan_plan_covers_every_output_and_fixes_the_bits():
     assert tscan.factored_scan_plan(1, 257, 2000, 132, 264)[:3] == (16, 16, 32)
 
 
+def _backward_smem_bytes(rt, resident, f, stripes, k_layers, subs):
+    """The backward kernel's shared memory a block (its ``layout_floats``,
+    which the card's plan asks the library for): a p tile (F x rt) or the
+    row totals (S x rt), the sub-stretch partials, the chunk partials,
+    four W x rt tiles, two rt vectors, the step's mask (rt bytes in rt
+    floats' room), the stripe's diag1, and one layer's weight stripes (dk
+    and dka^T, W x F and W x Fp) streamed, or every later layer's
+    resident."""
+    w, fp = tscan.BACKWARD_STRIPE, -(-f // 4) * 4
+    n = (max(f, stripes) * rt + subs * w * rt
+         + tscan.BACKWARD_MAX_CHUNKS * rt + 4 * w * rt + 3 * rt + w)
+    pair = f * w + w * fp
+    if k_layers > 1:
+        n += (k_layers - 1) * pair if resident else pair
+    return 4 * n
+
+
+def test_backward_plan_covers_every_output_and_fixes_the_bits():
+    """The backward kernel's plan: the blocks, walking their stripes and
+    row tiles as the kernel does, cover every (row, column of 2r) once;
+    the sub-stretches cover F once and the chunks the stripes once, at
+    most BACKWARD_MAX_CHUNKS of them; W, S, the sub-stretches and the
+    chunks depend on (F, 2r) alone, not on the batch, the card's shared
+    memory or its capacity; the resident instance is chosen only where
+    K > 1, its bytes fit and its grid covers every stripe, and the
+    shared memory is that of the chosen instance."""
+    h100 = 232_448
+
+    def capacities(per_instance):
+        return lambda rt, resident, smem: per_instance[resident]
+
+    for f, n2r in ((9, 16), (257, 2000), (33, 14), (65, 100), (9, 9000)):
+        fixed = set()
+        for bp in (16, 32, 64, 128):
+            for k in (1, 2, 5):
+                for max_smem, per_instance in ((h100, {True: 132, False: 132}),
+                                               (h100, {True: 0, False: 132}),
+                                               (h100, {True: 64, False: 64}),
+                                               (60_000, {True: 132,
+                                                         False: 132}),
+                                               (h100, {True: -1, False: 0})):
+                    case = (f"F={f} 2r={n2r} Bp={bp} K={k} smem={max_smem} "
+                            f"cap={per_instance}")
+                    plan = tscan.backward_plan(bp, f, n2r, k, max_smem,
+                                               capacities(per_instance),
+                                               _backward_smem_bytes)
+                    fixed.add((plan.stripe, plan.stripes, plan.fp, plan.sub,
+                               plan.subs, plan.chunk, plan.chunks))
+                    assert plan.rt in (16, 32) and bp % plan.rt == 0, case
+                    assert plan.stripes == -(-n2r // plan.stripe), case
+                    assert plan.fp % 4 == 0 and f <= plan.fp < f + 4, case
+                    assert plan.syncs_per_step == 1 + 2 * (k - 1), case
+                    smem = {res: _backward_smem_bytes(
+                        plan.rt, res, f, plan.stripes, k, plan.subs)
+                        for res in (True, False)}
+                    fits = smem[True] <= max_smem
+                    covers = per_instance[True] >= plan.stripes
+                    assert plan.resident == (k > 1 and fits and covers), case
+                    assert plan.smem == smem[plan.resident], case
+                    assert plan.capacity == per_instance[plan.resident], case
+                    assert 1 <= plan.grid <= plan.stripes, case
+                    if plan.capacity >= 1:
+                        assert plan.grid == min(plan.stripes,
+                                                plan.capacity), case
+                    if plan.resident:
+                        assert plan.grid == plan.stripes, case
+                    # block b: stripes b, b + grid, ..., each over every
+                    # row tile
+                    hits = np.zeros((bp, plan.stripes * plan.stripe), int)
+                    for b in range(plan.grid):
+                        for st in range(b, plan.stripes, plan.grid):
+                            for rt0 in range(0, bp, plan.rt):
+                                hits[rt0:rt0 + plan.rt,
+                                     st * plan.stripe:(st + 1)
+                                     * plan.stripe] += 1
+                    assert (hits == 1).all(), case
+                    cover = np.zeros(f, int)
+                    for u in range(plan.subs):
+                        cover[u * plan.sub:(u + 1) * plan.sub] += 1
+                    assert (cover == 1).all(), case
+                    cover = np.zeros(plan.stripes, int)
+                    for ch in range(plan.chunks):
+                        cover[ch * plan.chunk:(ch + 1) * plan.chunk] += 1
+                    assert (cover == 1).all(), case
+                    assert plan.chunks <= tscan.BACKWARD_MAX_CHUNKS, case
+                    assert plan.subs <= tscan.BACKWARD_SUBS, case
+        assert len(fixed) == 1, (f, n2r, fixed)
+    # the training batch on an H100: 125 stripes of 16, one block each, the
+    # weights resident (210,752 bytes of shared memory), 9 syncs a step
+    plan = tscan.backward_plan(32, 257, 2000, 5, h100,
+                               capacities({True: 132, False: 132}),
+                               _backward_smem_bytes)
+    assert plan[:3] == (32, 16, 125) and plan.resident, plan
+    assert (plan.grid, plan.smem, plan.syncs_per_step) == (125, 210_752, 9)
+
+
 def test_wrapper_on_cpu_runs_plain_version_and_rejects_malformed(rng):
     good = _to_torch(_operands(rng, 3, 11, 9, 8, 3))
     before = dict(tscan.LAUNCHES)

@@ -256,6 +256,165 @@ def test_gradients_match_jax(rng, monkeypatch):
     _port_grads(params, tcfg, trains, *_data(rng))
 
 
+def _striped_backward(g, step_mask, h_all, diag1, off1, c_uk, dkt_stack,
+                      dka_stack, stripe, sub, chunk):
+    """The backward kernel's order of arithmetic in plain PyTorch: 2r cut
+    into stripes of ``stripe`` columns; each back-projection a partial per
+    stripe, the partials summed in chunks of ``chunk`` stripes (each
+    ascending), the chunks in order; each projection over F in
+    sub-stretches of ``sub`` depths added in order; each stripe's rowsum
+    over its columns ascending, its row total c*(rowsums of d_{K-1}..d_1,
+    in that order) + off1*rowsum(d_0), and the next step's per-row total
+    summed over stripes as p is.  Arguments and results as for
+    ``drnmf_scan_factored_backward_reference``."""
+    bsz, t_len, n2r = g.shape
+    k_layers, bp = h_all.shape[0], h_all.shape[3]
+    f = dka_stack.shape[1]
+    cols = [slice(c, min(n2r, c + stripe)) for c in range(0, n2r, stripe)]
+    subs = [slice(u, min(f, u + sub)) for u in range(0, f, sub)]
+    chunks = [range(c, min(len(cols), c + chunk))
+              for c in range(0, len(cols), chunk)]
+
+    def over_stripes(parts):
+        total = None
+        for ch in chunks:
+            v = parts[ch[0]]
+            for s in ch[1:]:
+                v = v + parts[s]
+            total = v if total is None else total + v
+        return total
+
+    def rowsums(d):
+        out = []
+        for c in cols:
+            v = d[:, c.start]
+            for j in range(c.start + 1, c.stop):
+                v = v + d[:, j]
+            out.append(v)
+        return out
+
+    delta = g.new_zeros((k_layers, n2r, t_len, bp))
+    p_all = g.new_zeros((k_layers - 1, f, t_len, bp))
+    zero = g.new_zeros(())
+    gb = d_next = rowtot = None
+    for t in reversed(range(t_len)):
+        h_t = h_all[:, :, t, :bsz].transpose(1, 2)  # (K, B, 2r)
+        go = g[:, t]
+        if rowtot is not None:
+            go = go + (gb + d_next * (diag1 - off1)
+                       + over_stripes(rowtot)[:, None])
+        valid = step_mask[:, t, None]
+        gb = torch.where(valid, zero, go)
+        d = torch.where(valid & (h_t[-1] > 0), go, zero)
+        delta[-1, :, t, :bsz] = d.T
+        upper = rowsums(d)
+        for k in range(k_layers - 1, 0, -1):
+            p = over_stripes([d[:, c] @ dka_stack[k][:, c].T for c in cols])
+            p_all[k - 1, :, t, :bsz] = p.T
+            red = [p[:, u] @ dkt_stack[k - 1][:, u].T for u in subs]
+            total = red[0]
+            for r in red[1:]:
+                total = total + r
+            d = torch.where(h_t[k - 1] > 0, d - total, zero)
+            delta[k - 1, :, t, :bsz] = d.T
+            if k > 1:
+                upper = [a + b for a, b in zip(upper, rowsums(d))]
+        if k_layers > 1:
+            rowtot = [c_uk * a + off1 * b for a, b in zip(upper, rowsums(d))]
+        else:
+            rowtot = [off1 * b for b in upper]
+        d_next = d
+    gamma = gb + d_next * (diag1 - off1) + over_stripes(rowtot)[:, None]
+    return delta, p_all, gamma
+
+
+def test_backward_kernel_order_matches_jax(rng):
+    """The backward kernel's order of arithmetic (``_striped_backward``) at
+    stripes of 4 columns, sub-stretches of 2 and chunks of 2 stripes, and
+    at the kernel's own plan (``drnmf_scan.backward_plan``), on the same
+    numpy inputs as ``jax.vjp`` of the JAX package's
+    ``scan_plain_batched``: gamma and, through ``_weight_grads``, every
+    weight gradient and the input's, at ``GRAD_TOL``; its deltas and p
+    against ``drnmf_scan_factored_backward_reference`` at rtol 1e-5 /
+    atol 1e-6 (f32 both sides, sums in another order).  K = 1, 2, 3,
+    ragged batches, F and 2r that no stripe or sub-stretch divides, a
+    masked tail and a masked step mid-sequence."""
+    import types
+
+    from drnmf_tpu.models.batched_grad import scan_plain_batched
+
+    for bsz, t_len, f, r, K in ((5, 9, 9, 7, 1), (3, 8, 33, 7, 2),
+                                (5, 7, 17, 12, 3), (2, 6, 9, 20, 3)):
+        jcfg, tcfg = _configs(K=K, r=r, input_dim=f, output_dim=f)
+        w = rng.uniform(0.05, 1.0, (f, 2 * r)).astype(np.float32)
+        w /= np.sqrt(np.sum(w**2, axis=0))
+        tparams = params_from_numpy(
+            {k: np.asarray(v) for k, v in jax_init(jcfg, w).items()}, "cpu")
+        x = rng.uniform(0, 1, (bsz, t_len, f)).astype(np.float32)
+        x[bsz // 2, t_len - 3:] = tcfg.mask_value
+        x[-1, 2] = tcfg.mask_value
+        xt = torch.from_numpy(x)
+        args = tdrnmf.factored_scan_operands(
+            tparams, tcfg, xt, tdrnmf.step_mask_from_input(
+                xt, tcfg.mask_value))
+        # off1 and c at 1e-7 (the fold of the initial U) would hide the
+        # rowsum terms: any values of them give a valid recurrence
+        args = tuple(a.detach() for a in args[:4]) + (
+            torch.tensor(0.02), torch.tensor(-0.03)) + tuple(
+            a.detach() for a in args[6:])
+        _, h_all = drnmf_scan.drnmf_scan_factored_reference(
+            *args, keep_layers=True)
+        g = torch.from_numpy(rng.standard_normal(
+            (bsz, t_len, 2 * r)).astype(np.float32))
+        back = (g, args[1], h_all, *args[3:8])
+        ref = drnmf_scan.drnmf_scan_factored_backward_reference(*back)
+
+        xs, mask, h0, diag1, off1, c_uk, dkt, dka, b = (
+            jnp.asarray(a.numpy()) for a in args)
+        dks = [dkt[k - 1].T for k in range(1, K)]
+        static = (K, 1, jax.lax.Precision.HIGHEST)
+        _, vjp = jax.vjp(
+            lambda dks, dkas, w0, bs, h, xT: scan_plain_batched(
+                static, (diag1, off1, c_uk), dks, dkas, w0, bs, h, xT,
+                mask.T.astype(jnp.float32)),
+            dks, [dka[k] for k in range(1, K)], dka[0],
+            [b[k] for k in range(K)], h0, xs.swapaxes(0, 1))
+        j_dks, j_dkas, j_w0, j_bs, j_h, j_x = vjp(
+            jnp.asarray(g.numpy()).swapaxes(0, 1))
+        want = {"gamma": j_h, "d_x": np.asarray(j_x).swapaxes(0, 1),
+                "d_dka_0": j_w0}
+        for k in range(K):
+            want[f"d_b_{k}"] = j_bs[k]
+        for k in range(1, K):
+            want[f"d_dka_{k}"] = j_dkas[k - 1]
+            want[f"d_dkt_{k - 1}"] = np.asarray(j_dks[k - 1]).T
+
+        plan = drnmf_scan.backward_plan(bsz, f, 2 * r, K, 1 << 30,
+                                        lambda *a: 1, lambda *a: 0)
+        for stripe, sub, chunk in ((4, 2, 2),
+                                   (plan.stripe, plan.sub, plan.chunk)):
+            case = f"B{bsz}_T{t_len}_F{f}_r{r}_K{K} W={stripe}"
+            delta, p_all, gamma = _striped_backward(*back, stripe, sub,
+                                                    chunk)
+            for name, a, b in zip(("delta", "p"), (delta, p_all), ref):
+                np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                           atol=1e-6, err_msg=f"{case} {name}")
+            d_x, d_dkt, d_dka, d_b = batched_grad._weight_grads(
+                types.SimpleNamespace(needs_input_grad=(False, True)),
+                args[0], h_all, delta, p_all, args[6], args[7])
+            got = {"gamma": gamma, "d_x": d_x, "d_dka_0": d_dka[0]}
+            for k in range(K):
+                got[f"d_b_{k}"] = d_b[k]
+            for k in range(1, K):
+                got[f"d_dka_{k}"] = d_dka[k]
+                got[f"d_dkt_{k - 1}"] = d_dkt[k - 1]
+            assert got.keys() == want.keys(), case
+            for name, a in got.items():
+                np.testing.assert_allclose(a.numpy(), np.asarray(want[name]),
+                                           err_msg=f"{case} {name}",
+                                           **GRAD_TOL)
+
+
 def _loss_fns(jcfg, tcfg):
     def jloss(p, x, y, mask):
         return jlosses.masked_mse_signal_approx(
