@@ -119,16 +119,43 @@ Phases, each printing one JSON line:
               device time left.  The trained model then enhances 4
               signals through B1 against its plain path
               (``train_parity``, the parity tolerance).
-10. snmf_recipe -- the dictionary stage through ``train_snmf`` at full width
+10. pipeline -- the experiment pipeline through its command line
+              (``drnmf_torch.cli.main`` in this process, ``--no-score``, the
+              test split enhanced) on a synthetic corpus under
+              build/chip_smoke/pipeline/ (``make_synthetic_corpus``, 96
+              files of ``wsj0_like_lengths``, about 700 s of audio, one
+              corpus for all three splits), with the configs of
+              scripts/run_waspaa2017.py at full width (data_config without
+              its HDF5 datafiles: n_fft 512, hop 128, maxlen 500, mag/mag;
+              the flagship drnmf_config(5, 1000) cut to 2 epochs and 20
+              dictionary iterations a stage): the dictionary (B4/B5), the
+              fit (B1 with every layer kept and the backward kernel, once a
+              step; B1 once an evaluation) and ``predict_irm`` (B1 once a
+              batch of each length bucket), then the same command again,
+              where every artifact comes from its cache and only
+              ``predict_irm``'s B1 launches; every enhanced wav there,
+              finite, of its noisy file's length rounded up to the hop; 4
+              test files against ``enhance_signals`` with the same best
+              checkpoint (PIPE_WAV_RTOL/ATOL); snmf_config(1000) (the
+              dictionary from the cache, 200 inference iterations: B4/B5
+              only) and lstm_config(5, 250) for 1 epoch (no kernel); and
+              the flagship fit stopped after epoch 1 by
+              ``DRNMF_TRAIN_DEADLINE_TS``, then resumed, against the
+              uninterrupted fit (PIPE_RESUME_RTOL_OF_MAX).  Prints the
+              stage seconds (``StageTimer``), the dictionary's seconds, the
+              train ms a step (evaluations and checkpoints included), the
+              real-time factor of predict plus reconstruct, the launches by
+              run and the LSTM's ms a step.
+11. snmf_recipe -- the dictionary stage through ``train_snmf`` at full width
               (r=1000, 2r=2000, F=257) on 139 x 8 s of synthetic clean and
               noisy frames (139,695 frames: stage 1 in one chunk, stage 2 in
               two), 10 iterations a chunk; B4/B5 launch once per iteration;
               the dictionary then initialises the flagship model, which
               enhances 4 signals through B1.
-11. snmf_infer -- ``snmf_infer_irm`` (W frozen, 200 iterations) on 16 x 8 s.
-12. snmf_parity -- ``sparse_nmf_ed`` with B4/B5 against the same solver on
+12. snmf_infer -- ``snmf_infer_irm`` (W frozen, 200 iterations) on 16 x 8 s.
+13. snmf_parity -- ``sparse_nmf_ed`` with B4/B5 against the same solver on
               the plain passes, 10 iterations at 257 x 16,080 x 2000.
-13. snmf_times -- B4, B5, their plain versions and the bare cuBLAS products
+14. snmf_times -- B4, B5, their plain versions and the bare cuBLAS products
               at bench.py's SNMF shape (257 x 140,000, 2r=2000): ms, useful
               TFLOP/s, the bound (one TF32 tensor-core pass or the bytes)
               beside what three TF32 passes and the f32 CUDA cores could
@@ -148,6 +175,7 @@ import dataclasses
 import functools
 import json
 import os
+import pickle
 import socket
 import statistics
 import struct
@@ -206,6 +234,36 @@ GRAD_RTOL_OF_MAX = 1e-4
 # f32 plain route itself is 6.4e-4 off there (relu decisions near zero and
 # 500 steps of the gamma chain), so 1e-3
 GRAD_RTOL_VS_F64 = 1e-3
+# the experiment pipeline at the flagship width: the configs of
+# scripts/run_waspaa2017.py (data_config without the HDF5 datafiles,
+# drnmf_config(5, 1000), snmf_config(1000), lstm_config(5, 250)), cut to 2
+# epochs (the LSTM 1), 20 dictionary iterations a stage, on a synthetic
+# corpus of 96 WSJ0-like lengths (about 690 s of audio) used for all three
+# splits; only the test split is enhanced
+PIPE_FILES, PIPE_SEED, PIPE_EPOCHS, PIPE_SNMF_ITERS = 96, 2016, 2, 20
+PIPE_DATA = {"downsample": 1, "maxlen": 500,
+             "params_stft": {"N": N_FFT, "hop": HOP, "nch": 1},
+             "transform_x": "mag", "transform_y": "mag"}
+PIPE_DRNMF = {"K_layers": 5, "r": 1000, "alph": 400.0, "lam1": 1.0,
+              "batch_size": 32, "clipnorm": 0.0, "epochs": PIPE_EPOCHS,
+              "learning_rate": 1e-3, "loss": "mse_of_masked",
+              "optimizer": "adam", "params_trainable": ["log_D", "log_alph"],
+              "params_untied": ["log_D", "log_alph"], "patience": 50,
+              "snmf_max_iter": PIPE_SNMF_ITERS, "snmf_conv_eps": 1e-4}
+PIPE_SNMF = {"r": 1000, "lam1": 1.0, "cf": "ed",
+             "snmf_max_iter": PIPE_SNMF_ITERS, "snmf_conv_eps": 1e-4,
+             "infer_max_iter": 200, "random_seed": 2016}
+PIPE_LSTM = {"K_layers": 5, "hidden_dim": 250, "batch_size": 32,
+             "clipnorm": 1.0, "epochs": 1, "learning_rate": 1e-4,
+             "loss": "mse_of_masked", "optimizer": "adam", "patience": 50}
+# the pipeline's wav against enhance_signals on the card: the same kernels
+# on the same frames, sums batched otherwise (rtol 1e-4 / atol 1e-5, the
+# streaming tolerance), plus one step of the wav's int16 (1/32768), which a
+# difference of 1e-5 can flip
+PIPE_WAV_RTOL, PIPE_WAV_ATOL = 1e-4, 1e-5 + 1.0 / 32768
+# a resumed fit against the uninterrupted one: relative to each parameter's
+# largest entry (the same kernels in the same order: equal but for cuBLAS)
+PIPE_RESUME_RTOL_OF_MAX = 1e-6
 
 
 def log(phase, **fields):
@@ -773,7 +831,7 @@ def snmf_phases(card, config):
                         "chip_smoke", "dicts")
     gen = torch.Generator(device="cuda").manual_seed(2017)
 
-    # 7. the dictionary entry point at full width
+    # 11. the dictionary entry point at full width
     clean, noisy = synth_frames(gen, SNMF_SIGNALS)
     params = snmf_params_from_config({"r": SNMF_R, "lam1": 1.0,
                                       "snmf_max_iter": SNMF_ITERS})
@@ -829,7 +887,7 @@ def snmf_phases(card, config):
         reduced={"snmf_max_iter": [1000, SNMF_ITERS]})
     del clean
 
-    # 8. SNMF enhancer, W frozen, 200 iterations
+    # 12. SNMF enhancer, W frozen, 200 iterations
     x_frames = noisy[:, :noisy.shape[1] * INFER_SIGNALS // SNMF_SIGNALS]
     x_frames = x_frames.contiguous()
     del noisy
@@ -848,7 +906,7 @@ def snmf_phases(card, config):
         launches=infer_launches, seconds=infer_s,
         irm_min=float(irm.min()), irm_max=float(irm.max()))
 
-    # 9. the solver on the kernels against the solver on the plain passes
+    # 13. the solver on the kernels against the solver on the plain passes
     m, r2, n = 257, 2 * SNMF_R, x_frames.shape[1]
     w0 = torch.rand((m, r2), generator=gen, device="cuda")
     h0 = torch.rand((r2, n), generator=gen, device="cuda")
@@ -866,7 +924,7 @@ def snmf_phases(card, config):
           "sparse_nmf_ed on the kernels disagrees with the plain passes")
     del runs, w0, h0, x_frames
 
-    # 10. times at bench.py's SNMF shape
+    # 14. times at bench.py's SNMF shape
     m, r2, n = SNMF_TIMES_SHAPE
     v, h, w = snmf_operands(np.random.default_rng(12), m, r2, n)
     errs = snmf_errors(v, h, w, 1.0)
@@ -1826,6 +1884,187 @@ def train_phase(card, config, params):
     }
 
 
+def predict_launches(tensors_file, bucket_frames=128, batch=250):
+    """B1 launches that ``pipeline.predict_irm`` makes on a split: one a
+    batch of each length bucket (the pipeline's own cut)."""
+    x = np.load(tensors_file)["x"]
+    valid = np.any(x != -1.0, axis=-1)
+    lengths = np.where(valid.any(axis=1),
+                       x.shape[1] - valid[:, ::-1].argmax(axis=1), 0)
+    buckets = {}
+    for ln in lengths:
+        t_b = min(x.shape[1], -(-max(int(ln), 1) // bucket_frames)
+                  * bucket_frames)
+        buckets[t_b] = buckets.get(t_b, 0) + 1
+    return sum(-(-n // batch) for n in buckets.values())
+
+
+def pipeline_phase(card):
+    """Phase ``pipeline`` (module docstring).  Returns the flagship fit's
+    launches."""
+    import shutil
+
+    import torch
+    import yaml
+    from drnmf_torch import cli
+    from drnmf_torch.config import config_hash, drnmf_config_from_params
+    from drnmf_torch.data import make_synthetic_corpus, wsj0_like_lengths
+    from drnmf_torch.dsp.wav import wavread
+    from drnmf_torch.models import ensure_fold_valid
+    from drnmf_torch.train import TrainingDeadline, load_checkpoint
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke", "pipeline")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    taskfiles = make_synthetic_corpus(
+        os.path.join(root, "audio"), n_files=PIPE_FILES, seed=PIPE_SEED,
+        lengths=wsj0_like_lengths(np.random.default_rng(PIPE_SEED),
+                                  PIPE_FILES))
+    corpus_s = time.perf_counter() - t0
+    data = dict(PIPE_DATA)
+    for split in ("train", "valid", "test"):
+        data[f"taskfile_x_{split}"] = taskfiles["noisy"]
+        data[f"taskfile_y_{split}"] = taskfiles["clean"]
+    paths = {}
+    for name, cfg in (("data", data), ("unfolded_snmf", PIPE_DRNMF),
+                      ("snmf", PIPE_SNMF), ("lstm", PIPE_LSTM),
+                      ("unfolded_snmf_resume", {**PIPE_DRNMF,
+                                                "resume": True})):
+        paths[name] = os.path.join(root, f"params_{name}.yaml")
+        with open(paths[name], "w") as fh:
+            yaml.safe_dump(cfg, fh)
+    exp = os.path.join(root, "exp")
+
+    def run(config, exp_dir=exp, splits="test"):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cli.main(["-c", paths[config], "-d", paths["data"],
+                        "--exp-dir", exp_dir, "--splits", splits,
+                        "--no-score", "-q"])
+        torch.cuda.synchronize()
+        return out, read_launches(), time.perf_counter() - t0
+
+    def stages(timer):
+        return {name: secs for name, secs, _ in timer.stages}
+
+    (best, config, res), fit_launches, fit_s = run("unfolded_snmf")
+    (_, _, res2), cached_launches, cached_s = run("unfolded_snmf")
+    timer, timer2 = res["timer"], res2["timer"]
+    h = config_hash(PIPE_DRNMF)
+    with open(os.path.join(exp, "history", f"history_unfolded_snmf_{h}"),
+              "rb") as fh:
+        steps = len(pickle.load(fh)["on_batch_end"]["loss"])
+    n_predict = predict_launches(os.path.join(exp, "tensors_test_full.npz"))
+    check(fit_launches["pass1"] > 0 and fit_launches["pass2"] > 0
+          and fit_launches["factored_backward"] == steps
+          and fit_launches["factored"] == steps + PIPE_EPOCHS + n_predict
+          and only_launched(fit_launches, "pass1", "pass2", "factored",
+                            "factored_backward"),
+          f"pipeline: the fit's launches {fit_launches}, expected B4/B5, "
+          f"{steps} of the backward kernel and {steps} + {PIPE_EPOCHS} + "
+          f"{n_predict} of B1 (steps, evaluations, predict_irm)")
+    check(cached_launches["factored"] == n_predict
+          and only_launched(cached_launches, "factored"),
+          f"pipeline: the cached run launched {cached_launches}, expected "
+          f"only predict_irm's {n_predict} of B1")
+
+    # every enhanced wav: there, finite, the noisy length rounded up to
+    # the hop (the reference's iSTFT length)
+    with open(taskfiles["noisy"]) as fh:
+        noisy = fh.read().split()
+    with open(taskfiles["clean"]) as fh:
+        clean = fh.read().split()
+    desc = f"unfolded_snmf_{h}_test"
+    enhanced = [c.replace("scaled", f"enhanced_{desc}") for c in clean]
+    lengths_ok = True
+    for x_path, e_path in zip(noisy, enhanced):
+        check(os.path.isfile(e_path), f"pipeline: no enhanced wav {e_path}")
+        e = wavread(e_path)[0]
+        n = wavread(x_path).shape[1]
+        check(np.isfinite(e).all(), f"pipeline: {e_path} is not finite")
+        lengths_ok &= len(e) == -(-n // HOP) * HOP
+    check(lengths_ok, "pipeline: an enhanced wav has another length than "
+          "its noisy file's rounded up to the hop")
+    # 4 test files against enhance_signals with the same best checkpoint
+    from drnmf_torch.enhance import enhance_signals
+    params, _ = load_checkpoint(os.path.join(
+        exp, "models", f"model_unfolded_snmf_{h}.npz"))
+    cfg = ensure_fold_valid(drnmf_config_from_params(PIPE_DRNMF, 257),
+                            params, verbose=False)
+    signals = [wavread(noisy[j])[0] for j in range(4)]
+    direct = enhance_signals(params, cfg, signals, N_FFT, HOP)
+    wave_err = 0.0
+    for j, want in enumerate(direct):
+        got = wavread(enhanced[j])[0][:len(want)]
+        err = np.abs(got - want)
+        check(bool((err <= PIPE_WAV_ATOL + PIPE_WAV_RTOL * np.abs(want))
+                   .all()), f"pipeline: test file {j} differs from "
+              f"enhance_signals by {err.max()}")
+        wave_err = max(wave_err, float(err.max()))
+
+    (_, _, snmf_res), snmf_launches, snmf_s = run("snmf")
+    check(snmf_launches["pass1"] > 0 and snmf_launches["pass2"] > 0
+          and only_launched(snmf_launches, "pass1", "pass2"),
+          f"pipeline: snmf launched {snmf_launches}, expected B4/B5 only")
+    (_, _, lstm_res), lstm_launches, lstm_s = run("lstm")
+    check(only_launched(lstm_launches),
+          f"pipeline: the LSTM launched {lstm_launches}, expected nothing")
+    h_lstm = config_hash(PIPE_LSTM)
+    with open(os.path.join(exp, "history", f"history_lstm_{h_lstm}"),
+              "rb") as fh:
+        lstm_steps = len(pickle.load(fh)["on_batch_end"]["loss"])
+
+    # resume: the flagship fit stopped after epoch 1 by the deadline, then
+    # resumed, against the uninterrupted fit above (its dictionary copied in)
+    exp_resume = os.path.join(root, "exp_resume")
+    shutil.copytree(os.path.join(exp, "dicts"),
+                    os.path.join(exp_resume, "dicts"))
+    os.environ["DRNMF_TRAIN_DEADLINE_TS"] = "1.0"
+    try:
+        run("unfolded_snmf_resume", exp_resume, "")
+        check(False, "pipeline: the deadline did not stop the fit")
+    except TrainingDeadline:
+        pass
+    finally:
+        del os.environ["DRNMF_TRAIN_DEADLINE_TS"]
+    (resumed, _, _), resume_launches, resume_s = run(
+        "unfolded_snmf_resume", exp_resume, "")
+    resume_err = max(float(np.abs(resumed[k] - best[k]).max()
+                           / max(float(np.abs(best[k]).max()), 1e-30))
+                     for k in best)
+    check(resume_err <= PIPE_RESUME_RTOL_OF_MAX,
+          f"pipeline: the resumed fit is {resume_err} (of each parameter's "
+          f"largest entry) from the uninterrupted one")
+
+    audio_s = timer.audio_seconds()
+    log("pipeline", card=card, files=PIPE_FILES, audio_seconds=audio_s,
+        corpus_seconds=corpus_s, fit_run_seconds=fit_s,
+        fit_stages=stages(timer), cached_run_seconds=cached_s,
+        cached_stages=stages(timer2),
+        dictionary_seconds=timer.seconds("dictionary"),
+        train_steps=steps,
+        train_ms_a_step=1e3 * timer.seconds("train") / steps,
+        rtf_predict_reconstruct=timer.realtime_factor(),
+        cached_rtf_predict_reconstruct=timer2.realtime_factor(),
+        launches={"fit": fit_launches, "cached": cached_launches,
+                  "snmf": snmf_launches, "lstm": lstm_launches,
+                  "resume": resume_launches},
+        predict_launches=n_predict, lengths_hop_rounded=lengths_ok,
+        enhance_signals_max_abs_diff=wave_err,
+        snmf_run_seconds=snmf_s, snmf_stages=stages(snmf_res["timer"]),
+        snmf_rtf=snmf_res["timer"].realtime_factor(),
+        lstm_run_seconds=lstm_s, lstm_stages=stages(lstm_res["timer"]),
+        lstm_steps=lstm_steps,
+        lstm_ms_a_step=1e3 * lstm_res["timer"].seconds("train") / lstm_steps,
+        lstm_rtf=lstm_res["timer"].realtime_factor(),
+        resume_run_seconds=resume_s, resume_max_rel_err=resume_err,
+        phase_seconds=time.perf_counter() - t_phase)
+    return fit_launches
+
+
 def main():
     import torch
 
@@ -2113,12 +2352,16 @@ def main():
     # 9. training at the reference schedule
     train_launches, backward_row = train_phase(card, config, params)
 
+    # 10. the experiment pipeline through its command line
+    pipeline_launches = pipeline_phase(card)
+
     snmf_rows = snmf_phases(card, config)
 
     def by_path(kernel):
         paths = {"main": main_launches, "dense_main": dense_launches,
                  **multi_launches, "serve": serve_launches,
-                 "paced": paced_launches, "train": train_launches}
+                 "paced": paced_launches, "train": train_launches,
+                 "pipeline": pipeline_launches}
         return {path: counts[kernel] for path, counts in paths.items()
                 if counts[kernel]}
 

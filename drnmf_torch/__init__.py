@@ -5,20 +5,29 @@ A port of ``drnmf_tpu`` (JAX on a TPU), which stays beside it as the
 reference.  Module names mirror the JAX package so each counterpart is easy
 to find:
 
-- ``dsp``      -- STFT / iSTFT, windows, wav I/O
-- ``models``   -- the DR-NMF unfolded-ISTA model (inference side) and the
+- ``dsp``      -- STFT / iSTFT, windows, wav I/O, the hop-phase features
+                  (``dsp.phase``)
+- ``data``     -- the wav corpus -> STFT stacks -> padded tensors
+                  (``AudioDataset``), the native wav reader, the synthetic
+                  corpus
+- ``models``   -- the DR-NMF unfolded-ISTA model, the LSTM baseline and the
                   SNMF enhancer
 - ``ops``      -- the hand-written CUDA kernels and their plain versions;
                   sparse NMF (``ops.snmf``)
-- ``train``    -- ``.npz`` checkpoints; the two-stage SNMF dictionary recipe
-- ``data``     -- masked sequences -> frame matrix
-- ``utils``    -- the hash-keyed SNMF dictionary cache
+- ``train``    -- the training loop (Keras-style Adam, elastic resume),
+                  losses, ``.npz`` checkpoints, the two-stage SNMF
+                  dictionary recipe
+- ``utils``    -- the hash-keyed SNMF dictionary cache; ``StageTimer``
+- ``pipeline`` -- the experiment: data, dictionary, fit, masks, wavs
+- ``reporting`` -- score tables and learning curves from an experiment
 - ``enhance``  -- the batch enhancer (waveform in, enhanced waveform out)
 - ``streaming`` -- the online enhancers (``StreamingEnhancer``,
                   ``MultiStreamEnhancer``) and the paced-load harness
 - ``convert``  -- parameters across from the JAX package, and init
 - ``config``   -- YAML model config -> ``DRNMFConfig`` / ``SNMFParams``;
-                  the artifact hash
+                  the artifact hash; YAML I/O and the experiment folders
+- ``cli``      -- command line: an experiment from a model and a data YAML
+                  (also ``python -m drnmf_torch``)
 - ``enhance_wav`` -- command line: config + checkpoint + wavs -> wavs
 - ``serve``    -- command line: the online enhancement server over TCP
 

@@ -1,7 +1,7 @@
-"""Model YAML -> ``DRNMFConfig`` and ``SNMFParams``, and the artifact hash
-(counterparts of the JAX package's ``pipeline.drnmf_config_from_params``,
-the ``SNMFParams`` built in ``pipeline._dict_from_config`` and
-``utils.config``).
+"""Model YAML -> ``DRNMFConfig`` and ``SNMFParams``, the artifact hash, YAML
+I/O and the experiment folder (counterparts of the JAX package's
+``pipeline.drnmf_config_from_params``, the ``SNMFParams`` built in
+``pipeline._dict_from_config`` and ``utils.config``).
 
 Keys that name knobs of the TPU build (``use_pallas``, ``remat``,
 ``remat_policy``, ``scan_unroll``, ``batched_grad``, ...) are accepted and
@@ -9,6 +9,7 @@ ignored, so the reference's model YAMLs load as they are."""
 
 import hashlib
 import json
+import os
 
 import numpy as np
 import yaml
@@ -43,6 +44,19 @@ def config_hash(config: dict, exclude=()) -> str:
 def load_yaml(path):
     with open(path) as f:
         return yaml.safe_load(f.read())
+
+
+def dump_yaml(obj, path):
+    with open(path, "w") as f:
+        yaml.safe_dump(obj, f)
+
+
+def ensure_experiment_dirs(folder_exp):
+    """Create the experiment folder layout (enhance.py:709-713 of the
+    reference): ``configs``, ``history``, ``models``, ``scores``."""
+    for sub in ("configs", "history", "models", "scores"):
+        os.makedirs(os.path.join(folder_exp, sub), exist_ok=True)
+    return folder_exp
 
 
 def drnmf_config_from_params(params_model: dict, input_dim: int,

@@ -28,12 +28,29 @@ Both splits go to the device once when they take at most
 Otherwise each batch is gathered on the host and copied through pinned
 memory without blocking, the next one while the current step runs.
 
-Not ported: elastic resume (``resume=``, the train-state file,
-``TrainingDeadline``, ``DRNMF_STATE_EVERY``, ``DRNMF_TRAIN_DEADLINE_TS``),
-the mesh and FSDP arguments, and XLA's devices (buffer donation,
-``make_epoch_chunk``, ``DRNMF_EPOCH_FUSE*``).
+Elastic resume (``resume=True`` with a ``savefile``): after each epoch the
+whole training state goes to ``savefile + ".train_state"`` (written to a
+temporary file and renamed): the trainable parameters, ``KerasAdam``'s
+``mu``, ``nu`` and ``count``, the best parameters and loss, the
+early-stopping counter, the epoch and the global step.  Frozen parameters
+are left out and checked at load against a fingerprint of the caller's
+(:func:`_frozen_fingerprint`).  A run that finds the file continues as if
+it had never stopped: the host order is fast-forwarded by the epochs run,
+and dropout's generator is seeded from the restored global step.
+``DRNMF_STATE_EVERY=N`` writes the best checkpoint and the state every N
+epochs (and at the last, at an early stop and at a deadline) instead of
+every epoch; ``DRNMF_TRAIN_DEADLINE_TS`` (a unix time) stops a resumable
+fit at the first epoch boundary past it with :class:`TrainingDeadline`,
+its state on disk.  The state file is the port's own (the JAX package's
+holds optax's leaves); a ``.npz`` checkpoint moves between the packages.
+
+Not ported: the mesh and FSDP arguments (ROADMAP.md queue A, item 10), and
+XLA's devices (buffer donation, ``make_epoch_chunk``,
+``DRNMF_EPOCH_FUSE*``).
 """
 
+import os
+import pickle
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -50,6 +67,106 @@ from .history import LossHistory
 # alone are 1.28 GB at the flagship schedule)
 DEVICE_DATA_SHARE = 0.5
 EVAL_BATCH = 250
+
+
+def _frozen_fingerprint(value):
+    """A cheap content fingerprint of a frozen parameter (shape, float64 sum
+    and absolute sum).  Frozen values are not stored in the train state but
+    taken from the caller's parameters at load: a fit resumed from another
+    dictionary or initialisation must not mix them silently with the
+    stored trainable state."""
+    v = np.asarray(value, np.float64)
+    return (tuple(v.shape), float(v.sum()), float(np.abs(v).sum()))
+
+
+class TrainingDeadline(RuntimeError):
+    """Raised at an epoch boundary once the unix time in
+    ``DRNMF_TRAIN_DEADLINE_TS`` has passed and the fit's resume state is on
+    disk: a bounded run stops cleanly, and a later call resumes it."""
+
+
+def _read_state(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def train_state_incomplete(savefile, epochs, patience):
+    """True where the resume state of ``savefile`` belongs to a fit that
+    still has epochs to run (it neither stopped early nor reached
+    ``epochs``): the pipeline then trains although a best checkpoint
+    exists."""
+    path = savefile + ".train_state"
+    if not os.path.exists(path):
+        return False
+    state = _read_state(path)
+    if state.get("finished") or state["wait"] > patience:
+        return False
+    return state["epoch"] + 1 < epochs
+
+
+def _save_train_state(path, epoch, params, optimizer, best_params, best_val,
+                      wait, global_step, frozen, finished=False):
+    """The whole training state, written to a temporary file and renamed.
+    ``frozen``: name -> host array of the frozen parameters, stored only as
+    fingerprints."""
+
+    def host(v):
+        return v.detach().cpu().numpy().copy()
+
+    state = {
+        "epoch": epoch,
+        "params": {k: host(v) for k, v in params.items() if k not in frozen},
+        "opt": {"names": list(optimizer.names), "count": optimizer.count,
+                "mu": [host(m) for m in optimizer.mu],
+                "nu": [host(m) for m in optimizer.nu]},
+        "best_params": {k: np.asarray(v) for k, v in best_params.items()
+                        if k not in frozen},
+        "frozen_fingerprint": {k: _frozen_fingerprint(v)
+                               for k, v in sorted(frozen.items())},
+        "best_val": float(best_val),
+        "wait": int(wait),
+        "global_step": int(global_step),
+        "finished": bool(finished),
+    }
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(state, f)
+    os.replace(tmp, path)
+
+
+def _load_train_state(path, params, optimizer, frozen):
+    """Restore the trainable parameters and the optimizer in place from
+    ``path``; returns the state dict with the best parameters completed by
+    ``frozen`` (the caller's frozen values, checked by fingerprint)."""
+    state = _read_state(path)
+    stored = state["frozen_fingerprint"]
+    if set(stored) != set(frozen):
+        raise ValueError(
+            f"train state {path} froze {sorted(stored)}, this fit freezes "
+            f"{sorted(frozen)}: delete the train state to restart")
+    for k, want in stored.items():
+        got = _frozen_fingerprint(frozen[k])
+        if got != want:
+            raise ValueError(
+                f"frozen param '{k}' differs from the run that wrote {path} "
+                f"(fingerprint {got} != {want}): resuming would silently mix "
+                f"a different warm-start dictionary/init with the "
+                f"checkpointed trainable state. Delete the train state to "
+                f"restart, or restore the original initialization.")
+    if state["opt"]["names"] != optimizer.names:
+        raise ValueError(f"train state {path} trains "
+                         f"{state['opt']['names']}, this fit "
+                         f"{optimizer.names}")
+    with torch.no_grad():
+        for k, v in state["params"].items():
+            params[k].copy_(torch.from_numpy(v))
+        for dst, src in ((optimizer.mu, state["opt"]["mu"]),
+                         (optimizer.nu, state["opt"]["nu"])):
+            for t, v in zip(dst, src):
+                t.copy_(torch.from_numpy(v))
+    optimizer.count = int(state["opt"]["count"])
+    state["best_params"] = {**frozen, **state["best_params"]}
+    return state
 
 
 @dataclass
@@ -193,7 +310,8 @@ def train_model(params: dict, loss_fn: Callable, train_data, valid_data,
                 savefile: Optional[str] = None,
                 histfile: Optional[str] = None,
                 eval_loss_fn: Optional[Callable] = None,
-                loss_takes_rng: bool = False, device="cuda"):
+                loss_takes_rng: bool = False, resume: bool = False,
+                device="cuda"):
     """Fit with early stopping; returns (best_params, history).
 
     ``params``: name -> array or tensor (copied; the caller's stay as they
@@ -201,10 +319,11 @@ def train_model(params: dict, loss_fn: Callable, train_data, valid_data,
     ``loss_fn(params, x, y, mask[, generator])`` -> scalar tensor, with a
     ``torch.Generator`` when ``loss_takes_rng`` (dropout); validation uses
     ``eval_loss_fn`` (defaults to ``loss_fn``), always without one.
-    ``trainable_mask``: name -> bool (all train when None).  Runs on the
-    card unless ``device="cpu"``; raises when CUDA was asked for and is
-    absent.  ``best_params``: name -> numpy array, as the JAX loop returns
-    them."""
+    ``trainable_mask``: name -> bool (all train when None).  ``resume``
+    (with ``savefile``): keep the resume state and continue from it where
+    it exists (module docstring).  Runs on the card unless
+    ``device="cpu"``; raises when CUDA was asked for and is absent.
+    ``best_params``: name -> numpy array, as the JAX loop returns them."""
     device = resolve_device(device)
     params = {k: v.clone() for k, v in params_on_device(params, device)
               .items()}
@@ -215,7 +334,9 @@ def train_model(params: dict, loss_fn: Callable, train_data, valid_data,
     optimizer = make_optimizer(train_config, params, trains)
     step_fn = make_train_step(loss_fn, optimizer, with_rng=loss_takes_rng)
     eval_fn = eval_loss_fn if eval_loss_fn is not None else loss_fn
-    history = LossHistory(histfile)
+    state_file = (savefile + ".train_state") if (resume and savefile) else None
+    resuming = bool(state_file and os.path.exists(state_file))
+    history = LossHistory(histfile, resume=resuming)
     generator = torch.Generator(device=device) if loss_takes_rng else None
     global_step = 0
 
@@ -237,13 +358,41 @@ def train_model(params: dict, loss_fn: Callable, train_data, valid_data,
         return {**frozen_np, **{k: host(v) for k, v in p.items()
                                 if k not in frozen_np}}
 
+    # the best parameters stay a copy on the device until a write needs
+    # them on the host (DRNMF_STATE_EVERY)
+    save_every = max(1, int(os.environ.get("DRNMF_STATE_EVERY", "1")))
     best_params = snapshot(params)
+    best_dirty = False
     best_val = np.inf
     wait = 0
+    start_epoch = 0
+    if resuming:
+        state = _load_train_state(state_file, params, optimizer, frozen_np)
+        best_params = state["best_params"]
+        best_val = state["best_val"]
+        wait = state["wait"]
+        global_step = state["global_step"]
+        start_epoch = state["epoch"] + 1
+        if state["finished"] or wait > train_config.patience:
+            start_epoch = train_config.epochs  # it had stopped early
+        # the batch orders of the epochs run, drawn and dropped
+        for _ in range(start_epoch):
+            rng.permutation(n)
+        if train_config.verbose:
+            print(f"resuming from epoch {start_epoch} "
+                  f"(best val_loss {best_val:.6f})")
+
+    def materialize():
+        nonlocal best_params, best_dirty
+        if best_dirty:
+            best_params = snapshot(best_params)
+            best_dirty = False
+        return best_params
+
     n_batches = len(range(0, n, bsz))
     loss_buf = torch.zeros(max(n_batches, 1), device=device)
 
-    for epoch in range(train_config.epochs):
+    for epoch in range(start_epoch, train_config.epochs):
         t0 = time.time()
         order = rng.permutation(n)
         batches = [order[s:s + bsz] for s in range(0, n, bsz)]
@@ -277,19 +426,40 @@ def train_model(params: dict, loss_fn: Callable, train_data, valid_data,
 
         if val_loss < best_val:
             best_val = val_loss
-            best_params = snapshot(params)
+            best_params = {k: v.detach().clone() for k, v in params.items()
+                           if k not in frozen_np}
+            best_dirty = True
             wait = 0
-            if savefile is not None:
-                save_checkpoint(savefile, best_params,
-                                meta={"val_loss": best_val})
         else:
             wait += 1
-        if wait > train_config.patience:
+
+        stopping = wait > train_config.patience
+        deadline = float(os.environ.get("DRNMF_TRAIN_DEADLINE_TS", "0"))
+        deadline_hit = bool(state_file and deadline and time.time() > deadline
+                            and epoch + 1 < train_config.epochs)
+        if (stopping or deadline_hit or (epoch + 1) % save_every == 0
+                or epoch + 1 == train_config.epochs):
+            if best_dirty:
+                materialize()
+                if savefile is not None:
+                    save_checkpoint(savefile, best_params,
+                                    meta={"val_loss": best_val})
+            if state_file:
+                # 'finished' marks an early stop only: a fit that reached
+                # its epochs may be extended by resuming with more
+                _save_train_state(state_file, epoch, params, optimizer,
+                                  best_params, best_val, wait, global_step,
+                                  frozen_np, finished=stopping)
+        if stopping:
             if train_config.verbose:
                 print(f"early stopping at epoch {epoch + 1}")
             break
+        if deadline_hit:
+            raise TrainingDeadline(
+                f"training deadline passed at epoch {epoch + 1}/"
+                f"{train_config.epochs}; state saved -- resume to continue")
 
     if train_config.epochs == 0 and savefile is not None:
         # the reference's quirk, kept: epochs=0 writes the initial values
         save_checkpoint(savefile, best_params, meta={"val_loss": np.inf})
-    return best_params, history
+    return materialize(), history

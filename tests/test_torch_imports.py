@@ -1,5 +1,7 @@
 """The port stands alone: importing every drnmf_torch module loads neither
-jax nor drnmf_tpu, and its entry points never fall back to the CPU."""
+jax nor drnmf_tpu (nor h5py, which only the HDF5 cache of the data layer
+imports, where it is used), and its entry points never fall back to the
+CPU."""
 
 import os
 import subprocess
@@ -19,7 +21,7 @@ names = ["drnmf_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "drnmf_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "drnmf_tpu", "h5py"))
 print(len(names), bad)
 assert not bad, bad
 """
@@ -30,8 +32,9 @@ def test_port_imports_no_jax_or_reference_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 31  # the training modules included
-    for name in ("drnmf_torch.streaming", "drnmf_torch.serve"):
+    assert n_modules >= 41  # the pipeline, data and LSTM modules included
+    for name in ("drnmf_torch.streaming", "drnmf_torch.serve",
+                 "drnmf_torch.cli", "drnmf_torch.__main__"):
         probe = subprocess.run(
             [sys.executable, "-c",
              f"import sys, {name}; assert '{name}' in sys.modules; "
@@ -42,7 +45,10 @@ def test_port_imports_no_jax_or_reference_package():
 
 
 def _call_entry_point(name, tmp_path):
-    from drnmf_torch import enhance_wav, serve
+    from drnmf_torch import cli, enhance_wav, pipeline, serve
+    from drnmf_torch.data import AudioDataset, compute_stfts
+    from drnmf_torch.dsp.phase import aug_stft
+    from drnmf_torch.models.lstm import LSTMConfig, init_lstm_params
     from drnmf_torch.streaming import MultiStreamEnhancer, StreamingEnhancer
     from drnmf_torch.convert import init_drnmf_params, params_from_numpy
     from drnmf_torch.enhance import enhance_signals, make_enhancer
@@ -74,6 +80,21 @@ def _call_entry_point(name, tmp_path):
         MultiStreamEnhancer({}, cfg, 2)
     elif name == "serve":
         serve.main(["-c", "c.yaml", "-m", "m.npz", "--port", "0"])
+    elif name == "cli":
+        cli.main(["-c", "params_lstm.yaml", "-d", "d.yaml", "--no-score"])
+    elif name in ("run_unfolded_snmf", "run_lstm", "run_snmf"):
+        getattr(pipeline, name)({}, {}, str(tmp_path / "exp"),
+                                flag_score=False)
+    elif name == "predict_irm":
+        pipeline.predict_irm(None, {}, np.zeros((1, 2, 5), np.float32))
+    elif name == "compute_stfts":
+        compute_stfts([], {"N": 16, "hop": 4})
+    elif name == "AudioDataset":
+        AudioDataset(str(tmp_path / "x.txt"), str(tmp_path / "y.txt"))
+    elif name == "init_lstm_params":
+        init_lstm_params(LSTMConfig())
+    elif name == "aug_stft":
+        aug_stft(np.zeros(64, np.float32), 16, 4)
     else:
         wav = tmp_path / "x.wav"
         wav.write_bytes(b"")
@@ -88,6 +109,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     for name in ("make_enhancer", "enhance_signals", "params_from_numpy",
                  "init_drnmf_params", "enhance_wav", "sparse_nmf",
                  "train_snmf", "snmf_infer_irm", "StreamingEnhancer",
-                 "MultiStreamEnhancer", "serve"):
+                 "MultiStreamEnhancer", "serve", "cli", "run_unfolded_snmf",
+                 "run_lstm", "run_snmf", "predict_irm", "compute_stfts",
+                 "AudioDataset", "init_lstm_params", "aug_stft"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             _call_entry_point(name, tmp_path)

@@ -13,11 +13,12 @@ the port's own time loop rtol 1e-5; three Adam steps rtol 1e-4 on losses
 and rtol 1e-4 / atol 1e-6 on parameters (no entry there has a gradient
 zero within rounding, which Adam would move by up to lr a step: the test
 checks); a fit's history rtol 1e-4, its parameters rtol 1e-4 / atol 1e-4
-of lr a step.  Each test walks its cases and names them in a failure
-message.
+of lr a step; a resumed fit against the uninterrupted one exactly.  Each
+test walks its cases and names them in a failure message.
 """
 
 import dataclasses
+import os
 import pickle
 
 import jax
@@ -581,3 +582,92 @@ def test_train_model_matches_jax(rng, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tloop.train_model(params, tloss, train, valid, tc)
+
+
+def test_train_resume_continues_exactly(rng, tmp_path, monkeypatch):
+    """Elastic resume, the counterparts of the JAX package's
+    ``test_train_resume_exact_continuation``,
+    ``test_periodic_state_save_same_result``,
+    ``test_resume_frozen_fingerprint_mismatch_raises`` and
+    ``test_training_deadline_aborts_cleanly_and_resumes``: a fit cut after
+    3 of 6 epochs (or stopped by ``DRNMF_TRAIN_DEADLINE_TS`` after its
+    first) and resumed equals the uninterrupted fit exactly on the CPU,
+    history included, every epoch's state written or every 4th
+    (``DRNMF_STATE_EVERY``), with a frozen parameter and with a loss that
+    draws from the step-seeded generator; a changed frozen value refuses
+    to resume; ``train_state_incomplete`` reads the state."""
+    n, t, f = 12, 6, 5
+    x = rng.uniform(0, 1, (n, t, f)).astype(np.float32)
+    y = rng.uniform(0, 1, (n, t, f)).astype(np.float32)
+    mask = np.ones((n, t), np.float32)
+    params0 = {"w": np.zeros((f, f), np.float32),
+               "b": np.zeros((f,), np.float32),
+               "frozen": np.ones((f,), np.float32)}
+    trains = {"w": True, "b": True, "frozen": False}
+
+    def loss_fn(p, xb, yb, mb):
+        return torch.mean((xb @ p["w"] + p["b"] + p["frozen"] - yb) ** 2)
+
+    def noisy_loss(p, xb, yb, mb, generator):
+        keep = torch.rand(xb.shape, generator=generator) < 0.8
+        return loss_fn(p, xb * keep, yb, mb)
+
+    def run(name, epochs, rng_loss=False, init=params0):
+        return tloop.train_model(
+            dict(init), noisy_loss if rng_loss else loss_fn, (x, y, mask),
+            (x, y, mask),
+            tloop.TrainConfig(epochs=epochs, batch_size=4, learning_rate=1e-2,
+                              verbose=False),
+            trainable_mask=trains, savefile=str(tmp_path / f"{name}.npz"),
+            histfile=str(tmp_path / f"{name}.hist"), eval_loss_fn=loss_fn,
+            loss_takes_rng=rng_loss, resume=True, device="cpu")
+
+    def same(got, want, msg):
+        (gp, gh), (wp, wh) = got, want
+        assert gh.history == wh.history, msg
+        for k in wp:
+            np.testing.assert_array_equal(gp[k], wp[k], err_msg=f"{msg} {k}")
+
+    monkeypatch.delenv("DRNMF_TRAIN_DEADLINE_TS", raising=False)
+    for every in ("1", "4"):
+        monkeypatch.setenv("DRNMF_STATE_EVERY", every)
+        for rng_loss in (False, True):
+            case = f"every{every}_rng{int(rng_loss)}"
+            full = run(f"full_{case}", 6, rng_loss)
+            run(f"part_{case}", 3, rng_loss)
+            savefile = str(tmp_path / f"part_{case}.npz")
+            assert os.path.exists(savefile + ".train_state"), case
+            assert tloop.train_state_incomplete(savefile, 6, 50)
+            assert not tloop.train_state_incomplete(savefile, 3, 50)
+            same(run(f"part_{case}", 6, rng_loss), full, case)
+            # the best checkpoint on disk is the returned one
+            ck, meta = jcheckpoint.load_checkpoint(
+                str(tmp_path / f"part_{case}.npz"))
+            for k in full[0]:
+                np.testing.assert_array_equal(ck[k], full[0][k])
+            assert float(meta["val_loss"]) == min(
+                full[1].history["on_epoch_end"]["val_loss"])
+    monkeypatch.delenv("DRNMF_STATE_EVERY")
+
+    full = run("deadline_full", 5)
+    monkeypatch.setenv("DRNMF_TRAIN_DEADLINE_TS", "1.0")  # long past
+    with pytest.raises(tloop.TrainingDeadline, match="epoch 1/5"):
+        run("deadline", 5)
+    assert (tmp_path / "deadline.npz.train_state").exists()
+    monkeypatch.delenv("DRNMF_TRAIN_DEADLINE_TS")
+    same(run("deadline", 5), full, "deadline")
+    # a deadline at the last epoch does not raise; a finished fit replays
+    monkeypatch.setenv("DRNMF_TRAIN_DEADLINE_TS", "1.0")
+    replay = run("deadline", 5)
+    for k in full[0]:
+        np.testing.assert_array_equal(replay[0][k], full[0][k])
+    monkeypatch.delenv("DRNMF_TRAIN_DEADLINE_TS")
+
+    changed = dict(params0, frozen=2.0 * params0["frozen"])
+    with pytest.raises(ValueError, match="fingerprint"):
+        run("deadline", 8, init=changed)
+    with open(tmp_path / "deadline.npz.train_state", "rb") as fh:
+        state = pickle.load(fh)
+    assert "frozen" not in state["params"] and \
+        "frozen" not in state["best_params"]
+    assert state["opt"]["names"] == ["b", "w"] and state["opt"]["count"] == 15
