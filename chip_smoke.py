@@ -120,8 +120,9 @@ Phases, each printing one JSON line:
               signals through B1 against its plain path
               (``train_parity``, the parity tolerance).
 10. pipeline -- the experiment pipeline through its command line
-              (``drnmf_torch.cli.main`` in this process, ``--no-score``, the
-              test split enhanced) on a synthetic corpus under
+              (``drnmf_torch.cli.main`` in this process, the test split
+              enhanced and, for the flagship, scored) on a synthetic
+              corpus under
               build/chip_smoke/pipeline/ (``make_synthetic_corpus``, 96
               files of ``wsj0_like_lengths``, about 700 s of audio, one
               corpus for all three splits), with the configs of
@@ -131,9 +132,15 @@ Phases, each printing one JSON line:
               dictionary iterations a stage): the dictionary (B4/B5), the
               fit (B1 with every layer kept and the backward kernel, once a
               step; B1 once an evaluation) and ``predict_irm`` (B1 once a
-              batch of each length bucket), then the same command again,
-              where every artifact comes from its cache and only
-              ``predict_irm``'s B1 launches; every enhanced wav there,
+              batch of each length bucket), the test split scored (six
+              per-SNR score files, the overall row finite, the engine on
+              all 96 files), then the same command again, where every
+              artifact and score comes from its cache (no scoring, the
+              score files untouched) and only ``predict_irm``'s B1
+              launches, and once more with ``--rescore`` (the same
+              launches, all 96 rows scored again, the overall row within
+              SCORE_TOLS of the first; bit equality printed); every
+              enhanced wav there,
               finite, of its noisy file's length rounded up to the hop; 4
               test files against ``enhance_signals`` with the same best
               checkpoint (PIPE_WAV_RTOL/ATOL); snmf_config(1000) (the
@@ -144,18 +151,41 @@ Phases, each printing one JSON line:
               uninterrupted fit (PIPE_RESUME_RTOL_OF_MAX).  Prints the
               stage seconds (``StageTimer``), the dictionary's seconds, the
               train ms a step (evaluations and checkpoints included), the
-              real-time factor of predict plus reconstruct, the launches by
-              run and the LSTM's ms a step.
-11. snmf_recipe -- the dictionary stage through ``train_snmf`` at full width
+              real-time factor of predict plus reconstruct, the scoring
+              RTF, the overall scores, the launches by run and the LSTM's
+              ms a step.
+11. score  -- ``metrics.engine.score_all_packed`` on the card (int16
+              buffers, align "guard", PESQ on), one line for each of (a)
+              the pipeline's enhanced test split (96 files, read as PCM16
+              by the native reader), (a') the same files' noisy input
+              against the same references and (b) bench.py::bench_score's
+              battery (64 PCM16 AM sinusoids of 2-5 s, seed 7, built here
+              by its recipe): a first call (cuFFT's plan cache cleared
+              first) and SCORE_TIMED_CALLS warm calls (the scoring RTF,
+              audio seconds per wall second, of each), the buckets, a
+              repeat bit-equal or not, the same engine with
+              ``device="cpu"`` held column by column (SCORE_TOLS; (b) not
+              in SDR, whose near-periodic references need the ridge
+              escalation; a NaN on one side only fails), the rows
+              escalated at each ridge on either device (SDR at every
+              ridge, ``engine.sdr_at_ridges``), delays equal to the CPU's;
+              for (a) and (a') PESQ against the float64 host model and
+              STOI against the per-file path on 8 files; device ms by
+              kernel group (FFTs, Cholesky, gathers) and the idle share of
+              one warm call (``profile_split``), and the device ms of the
+              parts of one bucket's pass (``score_ops``: the FFT of the
+              rows, the SDR, the factorization alone, the delay, PESQ and
+              its smoothing loop, STOI and its segment gather).
+12. snmf_recipe -- the dictionary stage through ``train_snmf`` at full width
               (r=1000, 2r=2000, F=257) on 139 x 8 s of synthetic clean and
               noisy frames (139,695 frames: stage 1 in one chunk, stage 2 in
               two), 10 iterations a chunk; B4/B5 launch once per iteration;
               the dictionary then initialises the flagship model, which
               enhances 4 signals through B1.
-12. snmf_infer -- ``snmf_infer_irm`` (W frozen, 200 iterations) on 16 x 8 s.
-13. snmf_parity -- ``sparse_nmf_ed`` with B4/B5 against the same solver on
+13. snmf_infer -- ``snmf_infer_irm`` (W frozen, 200 iterations) on 16 x 8 s.
+14. snmf_parity -- ``sparse_nmf_ed`` with B4/B5 against the same solver on
               the plain passes, 10 iterations at 257 x 16,080 x 2000.
-14. snmf_times -- B4, B5, their plain versions and the bare cuBLAS products
+15. snmf_times -- B4, B5, their plain versions and the bare cuBLAS products
               at bench.py's SNMF shape (257 x 140,000, 2r=2000): ms, useful
               TFLOP/s, the bound (one TF32 tensor-core pass or the bytes)
               beside what three TF32 passes and the f32 CUDA cores could
@@ -264,6 +294,28 @@ PIPE_WAV_RTOL, PIPE_WAV_ATOL = 1e-4, 1e-5 + 1.0 / 32768
 # a resumed fit against the uninterrupted one: relative to each parameter's
 # largest entry (the same kernels in the same order: equal but for cuBLAS)
 PIPE_RESUME_RTOL_OF_MAX = 1e-6
+# the scoring engine on the card against the same engine on the CPU (SDR,
+# SNR, SegSNR local, SegSNR global in dB; PESQ in MOS; STOI): the port's
+# tolerances against the JAX package (tests/test_torch_metrics.py), f32 on
+# both sides with FFTs and Cholesky factorizations from other libraries.
+# The SDR solves a 512 x 512 Toeplitz system of the reference's
+# autocorrelation r in float32.  A float32 Cholesky factorization's
+# backward error may reach n eps r[0] (3e-5 of r[0] at n = 512), so where
+# the system's smallest eigenvalue is below 1e-4 of r[0]
+# (ILL_CONDITIONED, from a float64 eigensolve on the host) its weak
+# directions are set by roundoff: cuSOLVER and LAPACK then disagree at
+# the same ridge (8.8e-3 dB on an H100 against the CPU, the pipeline's
+# noisy test split) and on whether the first ridge factors at all.  Such rows are held to
+# 0.05 dB (the tests' tolerance against the float64 oracle, half the
+# 0.1 dB budget) and counted, every other row to 1e-3 dB.  Where the two
+# devices kept different ridges, the SDRs are held at every ridge where
+# both are finite
+ILL_CONDITIONED = 1e-4
+ILL_CONDITIONED_SDR_TOL = 0.05
+SCORE_TOLS = (1e-3, 1e-3, 1e-3, 1e-3, 2e-3, 1e-3)
+SCORE_TIMED_CALLS = 3
+# bench.py::bench_score's battery: 64 PCM16 pairs of 2-5 s, seed 7
+BENCH_SCORE_FILES, BENCH_SCORE_SEED = 64, 7
 
 
 def log(phase, **fields):
@@ -817,7 +869,7 @@ def synth_frames(gen, n_signals, seconds=8.0):
 
 
 def snmf_phases(card, config):
-    """Phases 10-13; returns the kernel table's rows for B4 and B5."""
+    """Phases 12-15; returns the kernel table's rows for B4 and B5."""
     import torch
     from drnmf_torch.config import snmf_params_from_config
     from drnmf_torch.convert import init_drnmf_params
@@ -1937,23 +1989,69 @@ def pipeline_phase(card):
             yaml.safe_dump(cfg, fh)
     exp = os.path.join(root, "exp")
 
-    def run(config, exp_dir=exp, splits="test"):
+    def run(config, exp_dir=exp, splits="test", score=False, extra=()):
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = cli.main(["-c", paths[config], "-d", paths["data"],
-                        "--exp-dir", exp_dir, "--splits", splits,
-                        "--no-score", "-q"])
+                        "--exp-dir", exp_dir, "--splits", splits, "-q",
+                        *extra, *(() if score else ("--no-score",))])
         torch.cuda.synchronize()
         return out, read_launches(), time.perf_counter() - t0
 
     def stages(timer):
         return {name: secs for name, secs, _ in timer.stages}
 
-    (best, config, res), fit_launches, fit_s = run("unfolded_snmf")
-    (_, _, res2), cached_launches, cached_s = run("unfolded_snmf")
+    # the flagship scores its test split (the default); the engine's calls
+    # are counted to show that the cached rerun reads the score files
+    from drnmf_torch.metrics import engine
+    engine_calls = []
+    score_all_packed = engine.score_all_packed
+
+    def counted(ests, *args, **kwargs):
+        engine_calls.append(len(ests))
+        return score_all_packed(ests, *args, **kwargs)
+
+    engine.score_all_packed = counted
+    try:
+        (best, config, res), fit_launches, fit_s = run("unfolded_snmf",
+                                                       score=True)
+        fit_engine_rows = sum(engine_calls)
+        h = config_hash(PIPE_DRNMF)
+        score_dir = os.path.join(exp, "scores")
+        score_files = sorted(os.listdir(score_dir))
+        mtimes = {f: os.stat(os.path.join(score_dir, f)).st_mtime_ns
+                  for f in score_files}
+        del engine_calls[:]
+        (_, _, res2), cached_launches, cached_s = run("unfolded_snmf",
+                                                      score=True)
+        cached_untouched = len(engine_calls) == 0 and all(
+            os.stat(os.path.join(score_dir, f)).st_mtime_ns == t
+            for f, t in mtimes.items())
+        (_, _, res3), rescore_launches, rescore_s = run(
+            "unfolded_snmf", score=True, extra=("--rescore",))
+        rescore_engine_rows = sum(engine_calls)
+    finally:
+        engine.score_all_packed = score_all_packed
     timer, timer2 = res["timer"], res2["timer"]
-    h = config_hash(PIPE_DRNMF)
+    from drnmf_torch.metrics.scoring import SCORE_LABELS, SNRS
+    check(score_files == [f"scores_unfolded_snmf_{h}_test_{snr}.npz"
+                          for snr in sorted(SNRS)],
+          f"pipeline: the score files are {score_files}")
+    overall = res["test"][0].ravel()
+    check(np.isfinite(overall).all() and overall[4] != -1.0,
+          f"pipeline: the overall scores {overall} are not finite")
+    check(fit_engine_rows == PIPE_FILES,
+          f"pipeline: the engine scored {fit_engine_rows} rows, expected "
+          f"{PIPE_FILES}")
+    check(cached_untouched
+          and np.array_equal(res2["test"][0], res["test"][0]),
+          "pipeline: the cached rerun scored again or read other scores")
+    rescore_diff = np.abs(res3["test"][0] - res["test"][0]).ravel()
+    check(rescore_engine_rows == PIPE_FILES
+          and bool(np.all(rescore_diff <= np.array(SCORE_TOLS))),
+          f"pipeline: --rescore scored {rescore_engine_rows} rows, "
+          f"overall {res3['test'][0]} against {res['test'][0]}")
     with open(os.path.join(exp, "history", f"history_unfolded_snmf_{h}"),
               "rb") as fh:
         steps = len(pickle.load(fh)["on_batch_end"]["loss"])
@@ -1967,9 +2065,11 @@ def pipeline_phase(card):
           f"{steps} of the backward kernel and {steps} + {PIPE_EPOCHS} + "
           f"{n_predict} of B1 (steps, evaluations, predict_irm)")
     check(cached_launches["factored"] == n_predict
-          and only_launched(cached_launches, "factored"),
-          f"pipeline: the cached run launched {cached_launches}, expected "
-          f"only predict_irm's {n_predict} of B1")
+          and only_launched(cached_launches, "factored")
+          and rescore_launches == cached_launches,
+          f"pipeline: the cached runs launched {cached_launches} and "
+          f"{rescore_launches}, expected only predict_irm's {n_predict} of "
+          f"B1")
 
     # every enhanced wav: there, finite, the noisy length rounded up to
     # the hop (the reference's iSTFT length)
@@ -2044,6 +2144,14 @@ def pipeline_phase(card):
         corpus_seconds=corpus_s, fit_run_seconds=fit_s,
         fit_stages=stages(timer), cached_run_seconds=cached_s,
         cached_stages=stages(timer2),
+        overall_scores=dict(zip(SCORE_LABELS, overall.tolist())),
+        score_files=len(score_files),
+        score_rtf=audio_s / timer.seconds("score:test"),
+        rescore_run_seconds=rescore_s,
+        rescore_score_seconds=res3["timer"].seconds("score:test"),
+        rescore_max_abs_diff=rescore_diff.tolist(),
+        rescore_bit_equal=bool(np.array_equal(res3["test"][0],
+                                              res["test"][0])),
         dictionary_seconds=timer.seconds("dictionary"),
         train_steps=steps,
         train_ms_a_step=1e3 * timer.seconds("train") / steps,
@@ -2062,7 +2170,259 @@ def pipeline_phase(card):
         lstm_rtf=lstm_res["timer"].realtime_factor(),
         resume_run_seconds=resume_s, resume_max_rel_err=resume_err,
         phase_seconds=time.perf_counter() - t_phase)
-    return fit_launches
+    return fit_launches, enhanced, noisy, clean
+
+
+def reference_conditioning(refs, flen=512):
+    """The smallest eigenvalue over r[0] of each reference's flen x flen
+    Toeplitz autocorrelation matrix, in float64 on the host."""
+    import scipy.linalg
+
+    out = []
+    for ref in refs:
+        x = np.asarray(ref, np.float64)
+        nfft = 1 << (len(x) + flen - 1).bit_length()
+        sf = np.fft.rfft(x, nfft)
+        r = np.fft.irfft(sf * np.conj(sf), nfft)[:flen]
+        out.append(scipy.linalg.eigvalsh(scipy.linalg.toeplitz(r))[0]
+                   / max(r[0], 1e-300))
+    return np.array(out)
+
+
+def hold_scores(got, want, ridges_got, ridges_want, conditioning=None):
+    """Rows of two (n, 6) score tables against each other at SCORE_TOLS:
+    SDR only where ``conditioning`` (``reference_conditioning``) is given,
+    at ILL_CONDITIONED_SDR_TOL on its ill-conditioned rows, and by ridge
+    where the two kept different ridges.  A NaN on one side only fails.
+    Returns the largest difference by column, the rows whose kept ridge
+    differs and the largest SDR difference on the ill-conditioned rows."""
+    worst = [0.0] * 6
+    other_ridge = []
+    worst_ill = 0.0
+    for i in range(len(got)):
+        for col, tol in enumerate(SCORE_TOLS):
+            a, b = float(got[i, col]), float(want[i, col])
+            check(np.isnan(a) == np.isnan(b),
+                  f"score: row {i} column {col} is {a} against {b}")
+            if a == b or np.isnan(a) or (col == 0 and conditioning is None):
+                continue
+            diff = abs(a - b)
+            if col == 0:
+                ill = conditioning[i] < ILL_CONDITIONED
+                tol = ILL_CONDITIONED_SDR_TOL if ill else tol
+                ra, rb = ridges_got[i], ridges_want[i]
+                first = [int(np.argmax(np.isfinite(r))) for r in (ra, rb)]
+                if first[0] != first[1]:
+                    both = np.isfinite(ra) & np.isfinite(rb)
+                    check(bool(np.all(np.abs(ra - rb)[both] <= tol)),
+                          f"score: row {i} SDR by ridge {ra} against {rb}")
+                    other_ridge.append(i)
+                    continue
+                if ill:
+                    check(diff <= tol, f"score: row {i} SDR {a} against "
+                          f"{b} (ill-conditioned, tolerance {tol})")
+                    worst_ill = max(worst_ill, diff)
+                    continue
+            check(diff <= tol, f"score: row {i} column {col} is {a} "
+                  f"against {b} (tolerance {tol})")
+            worst[col] = max(worst[col], diff)
+    return worst, other_ridge, worst_ill
+
+
+def bench_score_battery():
+    """bench.py::bench_score's pairs, by its recipe (without importing
+    it): a sinusoid of 120-280 Hz at 2 Hz AM and white noise, PCM16."""
+    rng = np.random.default_rng(BENCH_SCORE_SEED)
+    ests, refs = [], []
+    for i in range(BENCH_SCORE_FILES):
+        n = int(FS * rng.uniform(2.0, 5.0))
+        t = np.arange(n) / FS
+        f0 = 120 + 40 * (i % 5)
+        ref = (0.1 * np.sin(2 * np.pi * f0 * t)
+               * (0.5 + 0.5 * np.sin(2 * np.pi * 2.0 * t))).astype(np.float32)
+        est = ref + 0.02 * rng.standard_normal(n).astype(np.float32)
+        for x, out in ((est, ests), (ref, refs)):
+            out.append(np.clip(np.round(x * 32768.0), -32768,
+                               32767).astype(np.int16))
+    return ests, refs
+
+
+def score_ops(ests, refs):
+    """Device ms of the parts of one engine pass on its largest bucket:
+    the forward FFT of the rows, the SDR (its FFTs, the batched Cholesky
+    factorization and solve), the factorization alone, the delay, PESQ
+    and its smoothing loop alone, STOI and its segment gather alone, and
+    the bucket's whole pass."""
+    import torch
+    from drnmf_torch.metrics import bss_eval, engine, pesq_device, stoi_device
+    from drnmf_torch.metrics.stoi import (FRAME, _WINDOW, _band_envelopes,
+                                          _segment_scores, hop_frames)
+    from drnmf_torch.metrics.fused import pack_pair, to_device
+
+    device = torch.device("cuda")
+    lens = np.array([min(len(e), len(r)) for e, r in zip(ests, refs)])
+    buckets = {}
+    for i, n in enumerate(lens):
+        buckets.setdefault(bss_eval._next_pow2(n + bss_eval.FLEN),
+                           []).append(i)
+    nfft, idxs = max(buckets.items(), key=lambda kv: (len(kv[1]), kv[0]))
+    est_c, ref_c, offsets = pack_pair(ests, refs, idxs, lens, np.int16)
+    off = to_device(offsets, device)
+    w = [nfft, None, (to_device(est_c, device), to_device(ref_c, device),
+                      off, off, to_device(lens[idxs], device))]
+    se, s, n_t = engine._rows(w)
+    flen = bss_eval.FLEN
+    r = torch.fft.irfft(torch.fft.rfft(s) * torch.fft.rfft(s).conj(),
+                        n=nfft)[:, :flen]
+    ar = torch.arange(flen, device=device)
+    R = r[:, (ar[:, None] - ar[None, :]).abs()] + 1e-7 * r[:, :1, None] \
+        * torch.eye(flen, device=device)
+    raw = torch.rand(len(idxs), nfft // 256 - 1, device=device) + 0.5
+    xs = stoi_device.resample_rows_16k_to_10k(s, n_t)[0]
+    xb = _band_envelopes(hop_frames(xs, FRAME)
+                         * torch.as_tensor(_WINDOW, device=device))
+    m = torch.full((len(idxs),), xb.shape[-1], device=device)
+    ms = {
+        "rfft_rows": cuda_ms(lambda: torch.fft.rfft(s), 5),
+        "sdr": cuda_ms(lambda: bss_eval._sdr_padded(se, s, n_t), 3),
+        "cholesky": cuda_ms(lambda: torch.linalg.cholesky_ex(R), 3),
+        "delay": cuda_ms(lambda: engine._delay_rows(se, s, n_t), 3),
+        "pesq": cuda_ms(lambda: pesq_device.pesq_rows(s, se, n_t), 3),
+        "pesq_smooth_gain": cuda_ms(lambda: pesq_device.smooth_gain(raw), 3),
+        "stoi": cuda_ms(lambda: stoi_device.stoi_rows(s, se, n_t), 3),
+        "stoi_segment_gather": cuda_ms(
+            lambda: _segment_scores(xb, xb, m), 3),
+        "bucket_pass": cuda_ms(lambda: engine._engine_bucket(
+            w, bss_eval.RIDGES[0], flen, 160, FS, True), 3),
+    }
+    return {"nfft": nfft, "rows": len(idxs), "ms": ms}
+
+
+def score_kernel_groups(split):
+    """profile_split's device ms summed by what the kernels do (by name):
+    FFTs, the Cholesky factorization and solve, gathers, the rest."""
+    groups = {"fft": 0.0, "cholesky_solve": 0.0, "gather": 0.0, "other": 0.0}
+    for name, (ms, _) in split["device_ms_by_kernel"].items():
+        low = name.lower()
+        key = ("fft" if "fft" in low else "cholesky_solve"
+               if any(k in low for k in ("potr", "chol", "trsm", "trsv"))
+               else "gather" if any(k in low for k in ("gather", "index"))
+               else "other")
+        groups[key] += ms
+    return groups
+
+
+def score_phase(card, enhanced, noisy, clean):
+    """Phase ``score`` (module docstring)."""
+    import torch
+    from drnmf_torch.data.native_loader import read_batch_i16
+    from drnmf_torch.metrics import _pesq_model, engine
+    from drnmf_torch.metrics.stoi import stoi
+    from drnmf_torch.metrics.bss_eval import FLEN, _next_pow2
+
+    t_phase = time.perf_counter()
+    def pcm16(paths):
+        data, lens = read_batch_i16(paths)
+        return [data[i, :lens[i]] for i in range(len(paths))]
+
+    clean_pcm = pcm16(clean)
+    for part, (ests, refs) in (
+            ("pipeline_corpus", (pcm16(enhanced), clean_pcm)),
+            ("pipeline_noisy", (pcm16(noisy), clean_pcm)),
+            ("bench_score", bench_score_battery())):
+        corpus = part.startswith("pipeline")
+        lens = [min(len(e), len(r)) for e, r in zip(ests, refs)]
+        audio_s = sum(lens) / FS
+        buckets = {}
+        for n in lens:
+            nfft = _next_pow2(n + FLEN)
+            buckets[nfft] = buckets.get(nfft, 0) + 1
+
+        def call():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = engine.score_all_packed(ests, refs, device="cuda")
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        torch.backends.cuda.cufft_plan_cache.clear()
+        (got, delays), first_s = call()
+        warm = [call() for _ in range(SCORE_TIMED_CALLS)]
+        warm_s = statistics.median(s for _, s in warm)
+        repeat_equal = all(np.array_equal(S, got, equal_nan=True)
+                           and np.array_equal(d, delays)
+                           for (S, d), _ in warm)
+        t0 = time.perf_counter()
+        want, want_delays = engine.score_all_packed(ests, refs, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        check(np.array_equal(delays, want_delays),
+              f"score ({part}): delays differ from the CPU's")
+        ridges = engine.sdr_at_ridges(ests, refs, device="cuda")
+        ridges_cpu = engine.sdr_at_ridges(ests, refs, device="cpu")
+        # the near-periodic battery's SDR is held only to be finite
+        # (SCORE_TOLS' comment)
+        conditioning = (reference_conditioning(
+            [r[:n] for r, n in zip(refs, lens)]) if corpus else None)
+        worst, other_ridge, worst_ill = hold_scores(
+            got, want, ridges, ridges_cpu, conditioning)
+        other_ridge_sdr = (float(np.max(np.abs(got[other_ridge, 0]
+                                               - want[other_ridge, 0])))
+                           if other_ridge else 0.0)
+        check(bool(np.isfinite(got[:, 0]).all()),
+              f"score ({part}): a non-finite SDR")
+        def escalated(by_ridge):
+            out = {f"{a:g}->{b:g}": int(np.sum(
+                np.isnan(by_ridge[:, k]) & np.isfinite(by_ridge[:, k + 1])))
+                for k, (a, b) in enumerate(zip(engine.RIDGES,
+                                               engine.RIDGES[1:]))}
+            out["fallback"] = int(np.sum(~np.isfinite(by_ridge).any(1)))
+            return out
+        host = {}
+        if corpus:
+            # PESQ against the float64 host model, STOI against the
+            # per-file path, on 8 files
+            pesq_err = stoi_err = 0.0
+            for i in range(min(8, len(ests))):
+                r64, e64 = refs[i] / 32768.0, ests[i] / 32768.0
+                pesq_err = max(pesq_err, abs(
+                    got[i, 4] - _pesq_model.pesq_mos_aligned(r64, e64)))
+                stoi_err = max(stoi_err, abs(
+                    got[i, 5] - stoi(r64, e64, device="cuda")))
+            check(pesq_err <= SCORE_TOLS[4] and stoi_err <= SCORE_TOLS[5],
+                  f"score ({part}): PESQ {pesq_err} from the host model, "
+                  f"STOI {stoi_err} from the per-file path")
+            host = {"pesq_max_abs_diff_to_host_f64": pesq_err,
+                    "stoi_max_abs_diff_to_per_file": stoi_err}
+        split = profile_split(
+            lambda: engine.score_all_packed(ests, refs, device="cuda"))
+        groups = score_kernel_groups(split)
+        split["device_ms_by_kernel"] = dict(
+            list(split["device_ms_by_kernel"].items())[:12])
+        log("score", part=part, card=card, files=len(ests),
+            audio_seconds=audio_s,
+            buckets=[{"nfft": k, "rows": v} for k, v in sorted(
+                buckets.items())],
+            first_call_seconds=first_s, warm_seconds=[s for _, s in warm],
+            score_rtf_first=audio_s / first_s,
+            score_rtf_warm_median=audio_s / warm_s,
+            cpu_engine_seconds=cpu_s, repeat_bit_equal=repeat_equal,
+            max_abs_diff_to_cpu=dict(zip(("SDR", "SNR", "SegSNR local",
+                                          "SegSNR global", "PESQ", "STOI"),
+                                         worst)),
+            rows_kept_at_another_ridge_than_cpu=other_ridge,
+            other_ridge_sdr_max_abs_diff_to_cpu=other_ridge_sdr,
+            ill_conditioned_rows=(None if conditioning is None else int(
+                np.sum(conditioning < ILL_CONDITIONED))),
+            ill_conditioned_sdr_max_abs_diff_to_cpu=worst_ill,
+            min_eigenvalue_over_r0=(None if conditioning is None else [
+                float(conditioning.min()), float(np.median(conditioning))]),
+            escalated_rows=escalated(ridges),
+            escalated_rows_cpu=escalated(ridges_cpu),
+            delays_nonzero=int(np.sum(delays != 0)),
+            means=got.mean(axis=0).tolist(), **host,
+            device_ms_by_group=groups,
+            device_ms_by_op=score_ops(ests, refs), profile=split)
+    log("score_done", phase_seconds=time.perf_counter() - t_phase)
 
 
 def main():
@@ -2353,7 +2713,11 @@ def main():
     train_launches, backward_row = train_phase(card, config, params)
 
     # 10. the experiment pipeline through its command line
-    pipeline_launches = pipeline_phase(card)
+    pipeline_launches, enhanced, noisy, clean = pipeline_phase(card)
+
+    # 11. scoring on the card: the pipeline's test split, its noisy input
+    # and bench.py's battery, against the CPU
+    score_phase(card, enhanced, noisy, clean)
 
     snmf_rows = snmf_phases(card, config)
 
@@ -2405,6 +2769,9 @@ def main():
         "bound_f32_cuda_cores_ms": b3_bounds_main["bound_f32_cuda_cores_ms"],
         "library_ms": None,
     }, {**backward_row, "launches_by_path": by_path("factored_backward")}]
+    for row in snmf_rows:  # the scored pipeline's dictionary stage
+        row["launches_by_path"]["pipeline"] = pipeline_launches[
+            row["name"].replace("snmf_mu_", "")]
     check(all(row["launches"] > 0 for row in scan_rows + snmf_rows),
           "a kernel was launched on no path")
     log("done", seconds_after_device_phase=time.perf_counter() - t_start)

@@ -17,8 +17,12 @@ to find:
 - ``train``    -- the training loop (Keras-style Adam, elastic resume),
                   losses, ``.npz`` checkpoints, the two-stage SNMF
                   dictionary recipe
+- ``metrics``  -- SDR, SNR, SegSNR, PESQ and STOI with the delay guard,
+                  batched on the device (``metrics.engine``), and the
+                  cached scoring of taskfiles
 - ``utils``    -- the hash-keyed SNMF dictionary cache; ``StageTimer``
-- ``pipeline`` -- the experiment: data, dictionary, fit, masks, wavs
+- ``pipeline`` -- the experiment: data, dictionary, fit, masks, wavs,
+                  scores
 - ``reporting`` -- score tables and learning curves from an experiment
 - ``enhance``  -- the batch enhancer (waveform in, enhanced waveform out)
 - ``streaming`` -- the online enhancers (``StreamingEnhancer``,
@@ -30,6 +34,7 @@ to find:
                   (also ``python -m drnmf_torch``)
 - ``enhance_wav`` -- command line: config + checkpoint + wavs -> wavs
 - ``serve``    -- command line: the online enhancement server over TCP
+- ``score_audio`` -- command line: score enhanced against reference wavs
 
 This package never imports ``jax`` or ``drnmf_tpu``; importing it sets no
 process-global torch state.

@@ -1,15 +1,15 @@
 """Command line: an experiment from two YAML files (counterpart of
 ``drnmf_tpu/cli.py``; the reference's enhance.py:459-475)::
 
-    python -m drnmf_torch.cli -c <model config YAML> -d <data config YAML> \
-        --no-score
+    python -m drnmf_torch.cli -c <model config YAML> -d <data config YAML>
 
 The model family comes from the config file's name, as in the reference
 ('unfolded_snmf' before 'snmf' before 'lstm', enhance.py:529-538).  The
-run trains (or reuses the cached artifacts) and writes the enhanced wavs of
-``--splits``.  Scoring is not ported yet (ROADMAP.md, queue A, item 8): a
-run that would score stops at argument parsing unless given ``--no-score``
-(``--splits ''`` trains only).  Runs on the card unless ``--device cpu``.
+run trains (or reuses the cached artifacts), writes the enhanced wavs of
+``--splits`` and scores them (per SNR condition and overall, cached under
+``<exp-dir>/scores/``): ``--no-score`` enhances only, ``--no-pesq`` writes
+-1.0 for PESQ, ``--rescore`` ignores cached scores, ``--splits ''``
+trains only.  Runs on the card unless ``--device cpu``.
 """
 
 import argparse
@@ -47,14 +47,14 @@ def main(argv=None):
                         help="experiment dir (default "
                         "data_setup_downsample<d>)")
     parser.add_argument("--recompute", action="store_true")
-    parser.add_argument("--rescore", action="store_true")
+    parser.add_argument("--rescore", action="store_true",
+                        help="recompute cached score files")
     parser.add_argument("--no-score", action="store_true",
-                        help="enhance without scoring (required until "
-                        "scoring is ported)")
+                        help="enhance without scoring")
     parser.add_argument("--no-pesq", action="store_true",
-                        help="skip PESQ when scoring")
+                        help="skip PESQ when scoring (its column is -1.0)")
     parser.add_argument("--splits", default="valid,test",
-                        help="comma-separated splits to enhance")
+                        help="comma-separated splits to enhance and score")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu only when "
                         "asked)")
@@ -62,8 +62,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     splits = tuple(s for s in args.splits.split(",") if s)
-    if splits and not args.no_score:
-        parser.error(pipeline.SCORING_NOT_PORTED)
     resolve_device(args.device)  # raises without CUDA unless --device cpu
     for path, what in ((args.config, "model config"),
                        (args.data, "data config")):

@@ -17,7 +17,7 @@ every ``h`` updated and a scalar sparsity go to :func:`ops.snmf_mu.
 sparse_nmf_ed`, whose passes are kernels B4/B5 on the card and their plain
 versions on the CPU; everything else runs :func:`_sparse_nmf_core`, a plain
 PyTorch loop (the JAX package's XLA core).  ``sparse_nmf_sharded`` is not
-ported yet (ROADMAP, item 10).
+ported yet (ROADMAP.md, queue A, item 10).
 """
 
 from dataclasses import dataclass, replace

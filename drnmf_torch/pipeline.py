@@ -10,18 +10,21 @@ them and resume from them.
 Each ``run_*`` runs on ``device`` (the card unless ``device="cpu"``;
 raises where CUDA was asked for and is absent) and enhances each split of
 ``splits``: its wavs go to the 'scaled' -> 'enhanced_<model>_<hash>_<split>'
-path of each clean file.  Scoring (``score_split``) waits for ROADMAP.md
-queue A, item 8: until then ``flag_score=True`` raises
-``NotImplementedError`` before any work, and ``flag_score=False`` enhances
-without scoring (where the JAX package's ``flag_score=False`` skips the
-enhancement as well; ``splits=()`` trains only).  The mesh, FSDP and tp
-arguments wait for item 10.  Each ``run_*`` returns its results with a
-:class:`StageTimer` (``results["timer"]``): ``dictionary`` and ``train``,
-then ``load_tensors``, ``predict_irm`` and ``reconstruct`` for each split,
-named ``<stage>:<split>``; its real-time factor is each split's audio over
-the seconds of its prediction and reconstruction.
+path of each clean file.  With ``flag_score`` (the default) each split is
+then scored (``score_split``: the six metrics a file by SNR condition,
+cached under ``<folder_exp>/scores/``, and the overall means);
+``flag_score=False`` enhances without scoring (where the JAX package's
+``flag_score=False`` skips the enhancement as well; ``splits=()`` trains
+only).  The mesh, FSDP and tp arguments wait for ROADMAP.md queue A,
+item 10.  Each ``run_*`` returns its results with a :class:`StageTimer`
+(``results["timer"]``) and each scored split's ``(overall, per_snr)``
+under its name: ``dictionary`` and ``train``, then ``load_tensors``,
+``predict_irm``, ``reconstruct`` and ``score`` for each split, named
+``<stage>:<split>``; its real-time factor is each split's audio over the
+seconds of its prediction and reconstruction (scoring has its own).
 """
 
+import functools
 import os
 import pickle
 
@@ -36,6 +39,8 @@ from .data import (AudioDataset, get_mask_value, load_split,
 from .device import resolve_device
 from .dsp.stft import istft
 from .dsp.wav import wavwrite
+from .metrics.scoring import (SCORE_LABELS, SNRS, aggregate_snr_scores,
+                              score_dataset)
 from .models import (LSTMConfig, drnmf_forward, drnmf_trainable_mask,
                      ensure_fold_valid, init_lstm_params, lstm_forward,
                      snmf_infer_irm)
@@ -44,10 +49,6 @@ from .train import (TrainConfig, load_checkpoint, masked_mse_signal_approx,
                     train_state_incomplete)
 from .utils.cache import load_snmf, snmf_cache_path
 from .utils.profiling import StageTimer
-
-SCORING_NOT_PORTED = (
-    "scoring is not ported yet (ROADMAP.md, queue A, item 8): enhance "
-    "without it (flag_score=False; --no-score on the command line)")
 
 
 def dataset_audio_seconds(dataset, fs=None):
@@ -207,15 +208,41 @@ def reconstruct_split(dataset, irm, mask, description, fs=None,
 
 
 def score_split(dataset, description, datadir, compute_pesq=True,
-                flag_rescore=False, verbose=True):
-    """Per-SNR scoring: waits for ROADMAP.md queue A, item 8."""
-    raise NotImplementedError(SCORING_NOT_PORTED)
+                flag_rescore=False, verbose=True, device="cuda"):
+    """Per-SNR scoring and the overall aggregate (enhance.py:1396-1433).
+    Returns (overall (1, 6), [(S, labels) a scored SNR condition])."""
+    per_snr = []
+    for snr_name in SNRS:
+        refs = [w for w in dataset.y_wavfiles if f"/{snr_name}/" in w]
+        if not refs:
+            continue
+        if verbose:
+            print(f"  scoring SNR {snr_name} ({len(refs)} files)")
+        per_snr.append(score_dataset(
+            dataset, description, snr_name=snr_name, datadir=datadir,
+            compute_pesq=compute_pesq, flag_rescore=flag_rescore,
+            device=device))
+    overall = aggregate_snr_scores(per_snr, len(dataset.y_wavfiles))
+    if verbose:
+        for label, val in zip(SCORE_LABELS, overall.ravel()):
+            print(f"  overall mean {label}: {val:.3f}")
+    return overall, per_snr
+
+
+def _score_stage(results, timer, ds, desc, split, scorer, device):
+    """Score one enhanced split where ``scorer`` (``score_split`` with the
+    run's options, or None) is given."""
+    if scorer is not None:
+        with timer.stage(f"score:{split}", sync=device.type == "cuda"):
+            results[split] = scorer(ds, desc)
 
 
 def _enhance_splits(datasets, splits, params_data, folder_exp, apply_fn,
-                    params, mask_value, prefix, timer, device):
-    """Predict and reconstruct each split; the stages go to ``timer``."""
+                    params, mask_value, prefix, timer, device, scorer):
+    """Predict, reconstruct and score each split; the stages go to
+    ``timer``.  Returns the scored splits' results."""
     sync = device.type == "cuda"
+    results = {}
     for split in splits:
         ds = datasets[split]
         audio_s = dataset_audio_seconds(ds)
@@ -229,6 +256,9 @@ def _enhance_splits(datasets, splits, params_data, folder_exp, apply_fn,
         with timer.stage(f"reconstruct:{split}", audio_seconds=audio_s,
                          sync=sync, group=split):
             reconstruct_split(ds, irm, mask, f"{prefix}_{split}")
+        _score_stage(results, timer, ds, f"{prefix}_{split}", split, scorer,
+                     device)
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -252,14 +282,23 @@ def _dict_from_config(params_model, params_data, datasets, folder_exp,
     return w_noisy, params_snmf
 
 
-def _start(params_data, folder_exp, flag_score, splits, device):
-    """What every runner does first: refuse to score, then the device, the
-    folders and the datasets."""
-    if flag_score and splits:
-        raise NotImplementedError(SCORING_NOT_PORTED)
+def _start(params_data, folder_exp, device):
+    """What every runner does first: the device, the folders and the
+    datasets."""
     device = resolve_device(device)
     ensure_experiment_dirs(folder_exp)
     return device, build_datasets(params_data, device=device)
+
+
+def _scorer(flag_score, folder_exp, compute_pesq, flag_rescore, verbose,
+            device):
+    """``score_split`` with a run's options, or None without
+    ``flag_score``."""
+    return (functools.partial(score_split, datadir=folder_exp + "/",
+                              compute_pesq=compute_pesq,
+                              flag_rescore=flag_rescore, verbose=verbose,
+                              device=device)
+            if flag_score else None)
 
 
 def _dicts_dir(folder_exp, path_dicts):
@@ -305,8 +344,7 @@ def run_unfolded_snmf(params_model, params_data, folder_exp, path_dicts=None,
                       device="cuda"):
     """The 'unfolded_snmf' branch of the reference driver
     (enhance.py:933-1236).  Returns (best_params, config, results)."""
-    device, datasets = _start(params_data, folder_exp, flag_score, splits,
-                              device)
+    device, datasets = _start(params_data, folder_exp, device)
     path_dicts = _dicts_dir(folder_exp, path_dicts)
     timer = StageTimer()
     sync = device.type == "cuda"
@@ -393,13 +431,16 @@ def run_unfolded_snmf(params_model, params_data, folder_exp, path_dicts=None,
         best_params = _load_params(savefile)
     config = ensure_fold_valid(config, best_params, verbose=verbose)
 
-    _enhance_splits(datasets, splits, params_data, folder_exp,
-                    lambda p, xb: drnmf_forward(p, config, xb),
-                    params_from_numpy(best_params, device),
-                    config.mask_value, f"unfolded_snmf_{h}", timer, device)
+    results = _enhance_splits(
+        datasets, splits, params_data, folder_exp,
+        lambda p, xb: drnmf_forward(p, config, xb),
+        params_from_numpy(best_params, device), config.mask_value,
+        f"unfolded_snmf_{h}", timer, device,
+        _scorer(flag_score, folder_exp, compute_pesq, flag_rescore, verbose,
+                device))
     if verbose:
         print(f"Timing:\n{timer.report()}")
-    return best_params, config, {"timer": timer}
+    return best_params, config, {**results, "timer": timer}
 
 
 def run_lstm(params_model, params_data, folder_exp, flag_recompute=False,
@@ -407,8 +448,7 @@ def run_lstm(params_model, params_data, folder_exp, flag_recompute=False,
              splits=("valid", "test"), flag_rescore=False, device="cuda"):
     """The 'lstm' branch (enhance.py:1239-1388).  Returns (best_params,
     config, results)."""
-    device, datasets = _start(params_data, folder_exp, flag_score, splits,
-                              device)
+    device, datasets = _start(params_data, folder_exp, device)
     timer = StageTimer()
     input_dim = int(params_data["params_stft"]["N"]) // 2 + 1
     config = LSTMConfig(
@@ -440,13 +480,16 @@ def run_lstm(params_model, params_data, folder_exp, flag_recompute=False,
     else:
         best_params = _load_params(savefile)
 
-    _enhance_splits(datasets, splits, params_data, folder_exp,
-                    lambda p, xb: lstm_forward(p, config, xb),
-                    params_from_numpy(best_params, device),
-                    config.mask_value, f"lstm_{h}", timer, device)
+    results = _enhance_splits(
+        datasets, splits, params_data, folder_exp,
+        lambda p, xb: lstm_forward(p, config, xb),
+        params_from_numpy(best_params, device), config.mask_value,
+        f"lstm_{h}", timer, device,
+        _scorer(flag_score, folder_exp, compute_pesq, flag_rescore, verbose,
+                device))
     if verbose:
         print(f"Timing:\n{timer.report()}")
-    return best_params, config, {"timer": timer}
+    return best_params, config, {**results, "timer": timer}
 
 
 def run_snmf(params_model, params_data, folder_exp, path_dicts=None,
@@ -456,8 +499,7 @@ def run_snmf(params_model, params_data, folder_exp, path_dicts=None,
     """The 'snmf' branch (enhance.py:750-928): the dictionary, and MU
     inference with W frozen as the enhancer.  Returns (w_noisy,
     params_snmf, results)."""
-    device, datasets = _start(params_data, folder_exp, flag_score, splits,
-                              device)
+    device, datasets = _start(params_data, folder_exp, device)
     path_dicts = _dicts_dir(folder_exp, path_dicts)
     timer = StageTimer()
     sync = device.type == "cuda"
@@ -469,7 +511,9 @@ def run_snmf(params_model, params_data, folder_exp, path_dicts=None,
     dump_yaml(params_model,
               os.path.join(folder_exp, "configs", f"params_snmf_{h}.yaml"))
     histfile = os.path.join(folder_exp, "history", f"history_snmf_{h}")
-
+    scorer = _scorer(flag_score, folder_exp, compute_pesq, flag_rescore,
+                     verbose, device)
+    results = {}
     for split in splits:
         ds = datasets[split]
         audio_s = dataset_audio_seconds(ds)
@@ -499,6 +543,8 @@ def run_snmf(params_model, params_data, folder_exp, path_dicts=None,
         with timer.stage(f"reconstruct:{split}", audio_seconds=audio_s,
                          sync=sync, group=split):
             reconstruct_split(ds, irm, mask, f"snmf_{h}_{split}")
+        _score_stage(results, timer, ds, f"snmf_{h}_{split}", split, scorer,
+                     device)
     if verbose:
         print(f"Timing:\n{timer.report()}")
-    return w_noisy, params_snmf, {"timer": timer}
+    return w_noisy, params_snmf, {**results, "timer": timer}

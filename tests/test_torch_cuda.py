@@ -832,3 +832,96 @@ def test_training_on_card(cuda):
         _training_rows_do_not_depend_on_the_batch(cuda, alph)
     _training_refusals_raise(cuda)
     _training_function_matches_plain(cuda)
+
+
+# the scoring engine on the card against the same engine on the CPU: SDR,
+# SNR and segmental SNR within 1e-3 dB, PESQ within 2e-3 MOS, STOI within
+# 1e-3 (tests/test_torch_metrics.py's tolerances against the JAX package);
+# an SDR further apart only where the two devices kept different ridges of
+# the escalation, and then equal within 1e-3 dB at every ridge where both
+# are finite; delays equal; a repeat on the card bit-equal
+SCORE_TOLS = (1e-3, 1e-3, 1e-3, 1e-3, 2e-3, 1e-3)
+
+
+def _score_battery(seed=11, fs=16000):
+    """PCM16 pairs: corpus-like (drnmf_torch.data.synthetic's speech and
+    noise) at five lengths (one too short for PESQ and STOI), two
+    near-periodic AM sinusoids (bench.py::bench_score's), white noise with
+    a constant delay of 800 samples."""
+    from drnmf_torch.data import synthetic
+
+    rng = np.random.default_rng(seed)
+
+    def pcm16(x):
+        return np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.int16)
+
+    ests, refs = [], []
+    for k, n in enumerate((700, 9000, 17000, 23000, 40000)):
+        clean = synthetic._synthetic_speech(rng, n, fs)
+        noise = synthetic._synthetic_noise(rng, n, fs)
+        noise *= np.sqrt(np.mean(clean**2) / np.mean(noise**2)) * 0.5
+        refs.append(pcm16(clean))
+        ests.append(pcm16(clean + noise))
+    for i, n in enumerate((11000, 20000)):
+        t = np.arange(n) / fs
+        ref = (0.1 * np.sin(2 * np.pi * (120 + 40 * i) * t)
+               * (0.5 + 0.5 * np.sin(2 * np.pi * 2.0 * t)))
+        refs.append(pcm16(ref))
+        ests.append(pcm16(ref + 0.02 * rng.standard_normal(n)))
+    ref = 0.1 * rng.standard_normal(14000)
+    est = np.concatenate([np.zeros(800), ref[:-800]]) \
+        + 0.02 * rng.standard_normal(14000)
+    refs.append(pcm16(ref))
+    ests.append(pcm16(est))
+    return ests, refs
+
+
+def hold_scores(got, want, ridges_got, ridges_want):
+    """Rows of two score tables against each other (SCORE_TOLS; SDR by
+    ridge where the devices kept different ridges).  Returns the largest
+    difference by column and the rows whose kept ridge differs."""
+    worst = np.zeros(6)
+    other_ridge = []
+    for i in range(len(got)):
+        for col, tol in enumerate(SCORE_TOLS):
+            a, b = got[i, col], want[i, col]
+            if a == b or (np.isnan(a) and np.isnan(b)):
+                continue
+            diff = abs(a - b)
+            if col == 0 and diff > tol:
+                ra, rb = ridges_got[i], ridges_want[i]
+                first = [int(np.argmax(np.isfinite(r))) for r in (ra, rb)]
+                assert first[0] != first[1], (i, a, b, ra, rb)
+                both = np.isfinite(ra) & np.isfinite(rb)
+                assert np.all(np.abs(ra - rb)[both] <= tol), (i, ra, rb)
+                other_ridge.append(i)
+                continue
+            assert diff <= tol, (i, col, a, b)
+            worst[col] = max(worst[col], diff)
+    return worst, other_ridge
+
+
+@pytest.mark.cuda
+def test_scoring_engine_on_card(cuda):
+    """``score_all_packed`` on the card against the same engine on the CPU
+    (int16 buffers, the delay guard, the ridge escalation of the
+    near-periodic rows), its delays equal, a repeat bit-equal; PESQ with
+    the float64 host model on every row."""
+    from drnmf_torch.metrics import _pesq_model, engine
+
+    ests, refs = _score_battery()
+    got, delays = engine.score_all_packed(ests, refs, device="cuda")
+    again, delays2 = engine.score_all_packed(ests, refs, device="cuda")
+    want, want_delays = engine.score_all_packed(ests, refs, device="cpu")
+    np.testing.assert_array_equal(again, got)
+    np.testing.assert_array_equal(delays2, delays)
+    np.testing.assert_array_equal(delays, want_delays)
+    assert delays[-1] != 0 and not delays[:-1].any()
+    assert np.isfinite(got[1:]).all() and np.isfinite(got[0, :4]).all()
+    hold_scores(got, want, engine.sdr_at_ridges(ests, refs, device="cuda"),
+                engine.sdr_at_ridges(ests, refs, device="cpu"))
+    for i in range(len(ests) - 1):  # the delayed row is compensated
+        host = _pesq_model.pesq_mos_aligned(refs[i] / 32768.0,
+                                            ests[i] / 32768.0)
+        assert abs(got[i, 4] - host) <= SCORE_TOLS[4] or (
+            np.isnan(host) and np.isnan(got[i, 4])), (i, got[i, 4], host)

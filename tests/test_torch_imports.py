@@ -32,9 +32,10 @@ def test_port_imports_no_jax_or_reference_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 41  # the pipeline, data and LSTM modules included
+    assert n_modules >= 54  # the metrics package and score_audio included
     for name in ("drnmf_torch.streaming", "drnmf_torch.serve",
-                 "drnmf_torch.cli", "drnmf_torch.__main__"):
+                 "drnmf_torch.cli", "drnmf_torch.__main__",
+                 "drnmf_torch.score_audio", "drnmf_torch.metrics.engine"):
         probe = subprocess.run(
             [sys.executable, "-c",
              f"import sys, {name}; assert '{name}' in sys.modules; "
@@ -45,7 +46,9 @@ def test_port_imports_no_jax_or_reference_package():
 
 
 def _call_entry_point(name, tmp_path):
-    from drnmf_torch import cli, enhance_wav, pipeline, serve
+    from drnmf_torch import cli, enhance_wav, pipeline, score_audio, serve
+    from drnmf_torch.metrics import bss_eval_sdr, score_taskfiles
+    from drnmf_torch.metrics.engine import score_all_packed
     from drnmf_torch.data import AudioDataset, compute_stfts
     from drnmf_torch.dsp.phase import aug_stft
     from drnmf_torch.models.lstm import LSTMConfig, init_lstm_params
@@ -95,6 +98,15 @@ def _call_entry_point(name, tmp_path):
         init_lstm_params(LSTMConfig())
     elif name == "aug_stft":
         aug_stft(np.zeros(64, np.float32), 16, 4)
+    elif name == "score_audio":
+        score_audio.main(["--enh", "e.txt", "--ref", "r.txt"])
+    elif name == "score_all_packed":
+        score_all_packed([np.zeros(600, np.float32)],
+                         [np.zeros(600, np.float32)])
+    elif name == "score_taskfiles":
+        score_taskfiles(["e.wav"], ["r.wav"])
+    elif name == "bss_eval_sdr":
+        bss_eval_sdr(np.zeros(600, np.float32), np.zeros(600, np.float32))
     else:
         wav = tmp_path / "x.wav"
         wav.write_bytes(b"")
@@ -111,6 +123,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                  "train_snmf", "snmf_infer_irm", "StreamingEnhancer",
                  "MultiStreamEnhancer", "serve", "cli", "run_unfolded_snmf",
                  "run_lstm", "run_snmf", "predict_irm", "compute_stfts",
-                 "AudioDataset", "init_lstm_params", "aug_stft"):
+                 "AudioDataset", "init_lstm_params", "aug_stft",
+                 "score_audio", "score_all_packed", "score_taskfiles",
+                 "bss_eval_sdr"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             _call_entry_point(name, tmp_path)

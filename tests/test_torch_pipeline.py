@@ -16,12 +16,17 @@ peak plus one int16 step (1/32768, which a smaller difference can flip);
 each file's SDR (``drnmf_tpu/metrics/bss_eval.py`` on both) within 0.1 dB,
 the repo's budget; the SNMF enhancer's masks (H from ones on both sides)
 rtol 2e-5 / atol 1e-6, as ``tests/test_torch_snmf.py`` holds them; the
-LSTM's best checkpoint as the DR-NMF's.
+LSTM's best checkpoint as the DR-NMF's.  Scored, each package with its own
+metrics on its own wavs: the same score file names, the overall SDR, SNR
+and segmental SNR within 0.1 dB (the budget), PESQ within 2e-3 MOS and
+STOI within 1e-3 (``tests/test_torch_metrics.py``'s tolerances).
 """
 
 import dataclasses
 import os
 import shutil
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -32,6 +37,7 @@ import drnmf_tpu.data as jdata
 from drnmf_tpu import cli as jcli
 from drnmf_tpu import pipeline as jpipe
 from drnmf_tpu import reporting as jreporting
+from drnmf_tpu.metrics import scoring as jscoring
 from drnmf_tpu.metrics.bss_eval import bss_eval_sdr
 from drnmf_tpu.models import drnmf as jdrnmf
 from drnmf_tpu.models import lstm as jlstm
@@ -52,6 +58,7 @@ SNMF = {"r": 8, "lam1": 0.5, "cf": "ed", "snmf_max_iter": 20,
 LSTM = {"K_layers": 2, "hidden_dim": 8, "epochs": 2, "batch_size": 4,
         "learning_rate": 1e-3, "clipnorm": 1.0, "patience": 50}
 INT16_STEP = 1.0 / 32768
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _experiment(tmp_path, who):
@@ -81,10 +88,10 @@ def _wav(path):
     return scipy.io.wavfile.read(path)[1].astype(np.float64) / 32768.0
 
 
-def _cli(model_yaml, data_yaml, exp, *extra):
+def _cli(model_yaml, data_yaml, exp, *extra, score=False):
     return tcli.main(["-c", model_yaml, "-d", data_yaml, "--exp-dir", exp,
-                      "--splits", "valid", "--no-score", "--device", "cpu",
-                      "-q", *extra])
+                      "--splits", "valid", "--device", "cpu", "-q", *extra,
+                      *(() if score else ("--no-score",))])
 
 
 def _compare_wavs(jds, desc, tds, sdr=True):
@@ -206,6 +213,70 @@ def test_unfolded_snmf_pipeline_matches_jax(tmp_path, monkeypatch):
     assert treporting.mean_scores_from_files([scores], 1) == \
         jreporting.mean_scores_from_files([scores], 1)
 
+    # scored: the port's command line without --no-score against the JAX
+    # package's scored run, each on its own folder and best checkpoint
+    _, _, jres = jpipe.run_unfolded_snmf(model, jdata_cfg, jexp,
+                                         flag_score=True, verbose=False,
+                                         splits=("valid",))
+    _, _, scored = _cli(model_yaml, tdata_yaml, texp, score=True)
+    assert [name for name, _, _ in scored["timer"].stages][1:] == [
+        "load_tensors:valid", "predict_irm:valid", "reconstruct:valid",
+        "score:valid"]
+    assert sorted(os.listdir(os.path.join(texp, "scores"))) == \
+        sorted(os.listdir(os.path.join(jexp, "scores")))
+    assert len(os.listdir(os.path.join(texp, "scores"))) == 6
+    overall, want = scored["valid"][0].ravel(), jres["valid"][0].ravel()
+    assert np.isfinite(overall).all()
+    np.testing.assert_allclose(overall[:4], want[:4], rtol=0, atol=0.1)
+    np.testing.assert_allclose(overall[4], want[4], rtol=0, atol=2e-3)
+    np.testing.assert_allclose(overall[5], want[5], rtol=0, atol=1e-3)
+    rows, jrows = (treporting.summarize_experiment(texp),
+                   jreporting.summarize_experiment(jexp))
+    assert abs(rows[0]["mean_sdr"] - jrows[0]["mean_sdr"]) <= 0.1
+
+    # the cached scores are read back without scoring; --no-pesq writes
+    # -1.0 for PESQ; --rescore recomputes the same values
+    from drnmf_torch.metrics import engine, scoring
+    for mod, name in ((scoring, "compute_scores"),
+                      (engine, "score_all_packed")):
+        monkeypatch.setattr(mod, name, refuse)
+    _, _, again = _cli(model_yaml, tdata_yaml, texp, score=True)
+    np.testing.assert_array_equal(again["valid"][0], scored["valid"][0])
+    monkeypatch.undo()
+    _, _, no_pesq = _cli(model_yaml, tdata_yaml, texp, "--rescore",
+                         "--no-pesq", score=True)
+    for (got, _), (full, _) in zip(no_pesq["valid"][1], scored["valid"][1]):
+        assert np.all(got[:, 4] == -1.0)
+        np.testing.assert_array_equal(got[:, [0, 1, 2, 3, 5]],
+                                      full[:, [0, 1, 2, 3, 5]])
+    _, _, rescored = _cli(model_yaml, tdata_yaml, texp, "--rescore",
+                          score=True)
+    np.testing.assert_array_equal(rescored["valid"][0], scored["valid"][0])
+
+    # the general scorer on the port's wavs, one list (the engine's path,
+    # P.862-style alignment), against the JAX package's scoring
+    enh = [tds.enhanced_path(j, desc) for j in range(len(tds.y_wavfiles))]
+    lists = {}
+    for name, files in (("enh", enh), ("ref", list(tds.y_wavfiles))):
+        lists[name] = str(tmp_path / f"{name}.txt")
+        with open(lists[name], "w") as fh:
+            fh.write("\n".join(files) + "\n")
+    savefile = str(tmp_path / "score_audio.npz")
+    proc = subprocess.run(
+        [sys.executable, "-m", "drnmf_torch.score_audio", "--enh",
+         lists["enh"], "--ref", lists["ref"], "--savefile", savefile,
+         "--device", "cpu"], cwd=REPO, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "mean SDR" in proc.stdout
+    got = np.load(savefile)
+    assert str(got["align"]) == "full"
+    want, _ = jscoring.score_taskfiles(enh, list(tds.y_wavfiles),
+                                       align="full")
+    for col, tol in enumerate((1e-3,) * 4 + (2e-3, 1e-3)):
+        np.testing.assert_allclose(got["S"][:, col], want[:, col], rtol=0,
+                                   atol=tol, err_msg=str(col))
+
 
 def test_snmf_and_lstm_pipelines_match_jax(tmp_path, monkeypatch):
     """The 'snmf' and 'lstm' branches through the port's command line
@@ -277,10 +348,10 @@ def test_snmf_and_lstm_pipelines_match_jax(tmp_path, monkeypatch):
 
 def test_cli_dispatch_and_refusals(tmp_path, monkeypatch, capsys):
     """The model family from the config's file name ('unfolded_snmf'
-    before 'snmf' before 'lstm'); a run that would score stops at argument
-    parsing, before any work, naming the roadmap item; so do the runners
-    called with ``flag_score``; missing files and unknown families are
-    parser errors; ``--splits ''`` trains without scoring or enhancing."""
+    before 'snmf' before 'lstm'); scoring is the default, ``--no-score``,
+    ``--no-pesq`` and ``--rescore`` reach the runner; missing files and
+    unknown families are parser errors, before any work; ``--splits ''``
+    trains without scoring or enhancing."""
     for name, family in (("params_unfolded_snmf_a.yaml", "unfolded_snmf"),
                          ("x/snmf_lstm.yaml", "snmf"),
                          ("my_lstm_5.yaml", "lstm")):
@@ -292,30 +363,33 @@ def test_cli_dispatch_and_refusals(tmp_path, monkeypatch, capsys):
     def refuse(*args, **kwargs):
         raise AssertionError("ran")
 
-    for runner in ("run_unfolded_snmf", "run_lstm", "run_snmf",
-                   "build_datasets"):
+    calls = []
+    monkeypatch.setattr(tpipe, "run_unfolded_snmf",
+                        lambda *args, **kwargs: calls.append(kwargs))
+    for runner in ("run_lstm", "run_snmf", "build_datasets"):
         monkeypatch.setattr(tpipe, runner, refuse)
     _, data_yaml, exp = _experiment(tmp_path, "port")
     model_yaml = _model_yaml(tmp_path, "unfolded_snmf", DRNMF)
+    for extra, flags in (
+            ((), (True, True, False)),
+            (("--no-pesq", "--rescore"), (True, False, True)),
+            (("--no-score", "--splits", "test"), (False, True, False))):
+        tcli.main(["-c", model_yaml, "-d", data_yaml, "--device", "cpu",
+                   *extra])
+        kw = calls.pop()
+        assert (kw["flag_score"], kw["compute_pesq"],
+                kw["flag_rescore"]) == flags, extra
     for argv, message in (
-            (["-c", model_yaml, "-d", data_yaml], "item 8"),
-            (["-c", model_yaml, "-d", data_yaml, "--splits", "test"],
-             "item 8"),
-            (["-c", "missing.yaml", "-d", data_yaml, "--no-score",
-              "--device", "cpu"], "model config not found"),
+            (["-c", "missing.yaml", "-d", data_yaml, "--device", "cpu"],
+             "model config not found"),
             (["-c", _model_yaml(tmp_path, "rnn", DRNMF), "-d", data_yaml,
-              "--no-score", "--device", "cpu"], "cannot infer model type")):
+              "--device", "cpu"], "cannot infer model type")):
         with pytest.raises(SystemExit) as exc:
             tcli.main(argv)
         assert exc.value.code == 2
         assert message in capsys.readouterr().err, argv
     monkeypatch.undo()
-    for runner in (tpipe.run_unfolded_snmf, tpipe.run_lstm, tpipe.run_snmf):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            runner(DRNMF, {}, exp, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tpipe.score_split(None, "d", exp)
-    assert not os.path.exists(exp)  # refused before any work
+    assert not os.path.exists(exp)  # no work before the runner
 
     # no splits: train only, no wav written
     best, _, results = tcli.main(["-c", model_yaml, "-d", data_yaml,
@@ -326,3 +400,4 @@ def test_cli_dispatch_and_refusals(tmp_path, monkeypatch, capsys):
     audio = os.path.join(os.path.dirname(exp), "audio", "clean")
     assert sorted(os.listdir(audio)) == ["scaled"]
     assert set(best) >= {"log_D_0", "log_D_1", "log_alph_0", "log_h0"}
+    assert not os.listdir(os.path.join(exp, "scores"))
