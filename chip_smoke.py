@@ -192,11 +192,40 @@ Phases, each printing one JSON line:
               reach, a bit-equal repeat of both, their times at the recipe's
               unpadded 139,695 frames, one iteration split by kernel, and the
               end-to-end ``sparse_nmf`` iteration rate.
+16. parallel -- the multi-rank paths (``drnmf_torch.parallel``): two ranks
+              of one gloo group sharing the card (``run_ranks``; NCCL
+              refuses two ranks of one communicator on one device), every
+              collective with a timeout.  (a) ``parallel_fit``: the flagship
+              through ``train_model`` at B=32, T=500 for PAR_STEPS steps and
+              PAR_VALID_SEQS validation sequences, alone (this process),
+              data parallel (16 rows a rank: B1 with every layer kept and
+              the backward kernel on each rank's rows), FSDP (each rank's
+              parameter and moment bytes equal to ``plan_memory``) and
+              tensor parallel (dp=1 x tp=2, ``drnmf_apply_tp_dp``, no
+              kernel); losses and parameters against the one process
+              (PAR_FIT_RTOL / PAR_FIT_ATOL), ms a step, one step's
+              collectives by axis (count, bytes and ms, the device
+              synchronised around each).  (b) ``sparse_nmf_sharded`` at
+              SNMF_TIMES_SHAPE for PAR_SNMF_ITERS iterations (B4/B5 on each
+              rank's frames) against one process on the same inputs
+              (SNMF_RTOL of each output's largest entry), ms an iteration
+              of both.  (c) ``score_all_sharded`` of the pipeline's test
+              split against ``score_all_packed`` (delays equal,
+              ``hold_scores`` with each row's ridges from the batch its
+              rank scored it in), the Scoring RTF of a warm call.  (d) the
+              CLI as a user runs it: ``--dp 2`` and ``--dp 2 --fsdp`` at
+              the flagship on the pipeline's corpus (1 epoch; the overall
+              scores against one process's, SDR at
+              ILL_CONDITIONED_SDR_TOL), ``--dp 2 --tp 2`` on its first
+              files (2 steps; the losses against one process's), the
+              layout and backend line of each, and ``--tp 2`` on the LSTM
+              refused.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after.
 
-Then a line with the kernel table (B1 to B5 and the backward kernel), the
+Then a line with the kernel table (B1 to B5 and the backward kernel; the
+launches by path include ``parallel``, summed over the ranks), the
 card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that.
 """
@@ -316,6 +345,21 @@ SCORE_TOLS = (1e-3, 1e-3, 1e-3, 1e-3, 2e-3, 1e-3)
 SCORE_TIMED_CALLS = 3
 # bench.py::bench_score's battery: 64 PCM16 pairs of 2-5 s, seed 7
 BENCH_SCORE_FILES, BENCH_SCORE_SEED = 64, 7
+# the parallel phase: PAR_RANKS ranks of one gloo group sharing the card;
+# the flagship fit at the reference schedule (B=32, T=500) for PAR_STEPS
+# steps and PAR_VALID_SEQS validation sequences in each layout, held to
+# the single process at the JAX package's dp/FSDP tolerance
+# (tests/test_parallel.py: rtol 1e-4, parameters atol 1e-6); sparse NMF
+# at SNMF_TIMES_SHAPE for PAR_SNMF_ITERS iterations (its W, H and costs
+# within SNMF_RTOL of each one's largest entry of the single process)
+PAR_RANKS, PAR_STEPS, PAR_VALID_SEQS, PAR_SNMF_ITERS = 2, 3, 8, 10
+PAR_FIT_RTOL, PAR_FIT_ATOL = 1e-4, 1e-6
+# a collective that waits longer than this fails the run; the group's
+# join has twice as long
+PAR_TIMEOUT_S = 300.0
+# the CLI's --dp 2 --tp 2 run trains on the pipeline corpus's first files
+# up to about this many sequences of 500 frames: 2 steps at B=32
+PAR_TP_SEQS = 48
 
 
 def log(phase, **fields):
@@ -2425,6 +2469,546 @@ def score_phase(card, enhanced, noisy, clean):
     log("score_done", phase_seconds=time.perf_counter() - t_phase)
 
 
+def parallel_fit(mesh, layout, config, params, train, valid):
+    """The flagship through ``train_model`` for one epoch of PAR_STEPS
+    steps: alone (``mesh`` None), data parallel (``layout`` "dp"), FSDP
+    ("fsdp") or tensor parallel ("tp", ``parallel.drnmf_apply_tp_dp``).
+    Returns the trainable best parameters, the history, the bytes held
+    (``history.layout``), the wall time between the loss calls of
+    successive steps (synchronised) and one step's collectives."""
+    import torch
+    from drnmf_torch.models import drnmf
+    from drnmf_torch.parallel import drnmf_apply_tp_dp
+    from drnmf_torch.train import (TrainConfig, masked_mse_signal_approx,
+                                   train_model)
+
+    marks = []
+
+    def loss(p, x, y, mask):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(),
+                      None if mesh is None else dict(mesh.traffic),
+                      None if mesh is None else dict(mesh.calls)))
+        if layout == "tp":
+            irm = drnmf_apply_tp_dp(p, config, x, drnmf.step_mask_from_input(
+                x, config.mask_value), mesh)
+        else:
+            irm = drnmf.drnmf_forward(p, config, x)
+        return masked_mse_signal_approx(irm, x, y, mask)
+
+    # each collective's wall time, the device synchronised before and
+    # after it: the collective itself, gloo's copies through host memory
+    # included, apart from the kernels queued before it
+    spans = []
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans.append((t0, time.perf_counter()))
+            return out
+        return call
+
+    collectives = ("reduce", "gather", "reduce_scatter")
+    for name in collectives if mesh is not None else ():
+        setattr(mesh, name, timed(getattr(mesh, name)))
+    tc = TrainConfig(epochs=1, batch_size=TRAIN_BATCH,
+                     learning_rate=TRAIN_LR, clipnorm=0.0, patience=50,
+                     verbose=False)
+    trains = drnmf.drnmf_trainable_mask(config, params)
+    t0 = time.perf_counter()
+    try:
+        best, hist = train_model(params, loss, train, valid, tc,
+                                 trainable_mask=trains, mesh=mesh,
+                                 fsdp=layout == "fsdp")
+    finally:
+        for name in collectives if mesh is not None else ():
+            delattr(mesh, name)  # the class's methods again
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    # loss call i starts step i; the first evaluation's ends the last step
+    step_s = [b[0] - a[0] for a, b in zip(marks[:PAR_STEPS],
+                                          marks[1:PAR_STEPS + 1])]
+    one_step = None if mesh is None else {
+        axis: {"bytes": marks[2][1][axis] - marks[1][1][axis],
+               "collectives": marks[2][2][axis] - marks[1][2][axis]}
+        for axis in ("dp", "tp")}
+    if one_step is not None:  # step 2's collectives, in ms
+        one_step["ms"] = 1e3 * sum(b - a for a, b in spans
+                                   if marks[1][0] <= a < marks[2][0])
+    return {"best": {k: v for k, v in best.items() if trains[k]},
+            "history": hist.history, "resident": hist.layout,
+            "step_ms": [1e3 * s for s in step_s],
+            "ms_a_step": 1e3 * statistics.median(step_s),
+            "fit_seconds": fit_s, "one_step_collectives": one_step}
+
+
+def parallel_rank(rank, work, config, wavs, snmf_kw):
+    """One rank of the ``parallel`` phase's group: the fits in the dp, FSDP
+    and tp layouts, sparse NMF and the scoring of the pipeline's test
+    split, each path's launches counted on its own."""
+    import torch
+    from drnmf_torch.data.native_loader import read_batch_i16
+    from drnmf_torch.metrics import engine
+    from drnmf_torch.metrics.bss_eval import FLEN, _next_pow2
+    from drnmf_torch.metrics.sharded import deal_rows, score_all_sharded
+    from drnmf_torch.ops.snmf import SNMFParams, sparse_nmf
+    from drnmf_torch.parallel import (make_mesh, make_mesh_2d,
+                                      sparse_nmf_sharded)
+
+    dp = make_mesh()
+    tp = make_mesh_2d(1, PAR_RANKS)
+    data = np.load(os.path.join(work, "fit_data.npz"))
+    train = (data["x"], data["y"], data["mask"])
+    valid = (data["vx"], data["vy"], data["vmask"])
+    params = dict(np.load(os.path.join(work, "flagship.npz")))
+    out = {"backend": dp.backend, "device": str(dp.device),
+           "ranks_per_device": dp.ranks_per_device}
+    for layout, mesh in (("dp", dp), ("fsdp", dp), ("tp", tp)):
+        reset_launches()
+        out[layout] = parallel_fit(mesh, layout, config, params, train,
+                                   valid)
+        out[layout]["launches"] = read_launches()
+
+    # sparse NMF, frames split over the ranks, against one process; an
+    # iteration's time is read between the divergence sums (B5's, one
+    # collective of one entry, the last of each iteration), each of which
+    # waits for the iteration's device work
+    v = np.load(os.path.join(work, "snmf_v.npy"))
+    marks = []
+    reduce = dp.reduce
+
+    def timed_reduce(*tensors, **kw):
+        summed = reduce(*tensors, **kw)
+        if len(tensors) == 1 and tensors[0].numel() == 1:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        return summed
+
+    dp.reduce = timed_reduce
+    reset_launches()
+    before = (dict(dp.traffic), dict(dp.calls))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sparse_nmf_sharded(v, SNMFParams(**snmf_kw,
+                                           max_iter=PAR_SNMF_ITERS), dp)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    dp.reduce = reduce
+    launches = read_launches()
+    traffic = dp.traffic["dp"] - before[0]["dp"]
+    calls = dp.calls["dp"] - before[1]["dp"]
+    ref = sparse_nmf(v, SNMFParams(**snmf_kw, max_iter=PAR_SNMF_ITERS),
+                     device=dp.device)
+    errs = {name: float(np.abs(got - want).max() / np.abs(want).max())
+            for name, got, want in (("w", res.w, ref.w), ("h", res.h, ref.h),
+                                    ("cost", res.cost, ref.cost))}
+    iter_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    out["snmf"] = {"launches": launches, "max_rel_err_of_max": errs,
+                   "n_iter": res.n_iter, "ref_n_iter": ref.n_iter,
+                   "call_seconds": call_s, "iteration_ms": iter_ms,
+                   "ms_an_iteration": statistics.median(iter_ms),
+                   # the whole call's collectives: two an iteration (B4's
+                   # statistics, B5's divergence) and H's gather
+                   "collective_bytes": traffic, "collectives": calls}
+    del res, ref, v
+
+    # the pipeline's test split scored, its files split over the ranks
+    def pcm16(paths):
+        x, lens = read_batch_i16(paths)
+        return [x[i, :lens[i]] for i in range(len(paths))]
+
+    ests, refs = pcm16(wavs["enhanced"]), pcm16(wavs["clean"])
+
+    def score():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = score_all_sharded(ests, refs, dp, fs=FS)
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    (S, delays), first_s = score()
+    (S2, _), warm_s = score()
+    # the SDR of this rank's rows at each ridge, in its batches
+    lens = np.array([min(len(e), len(r)) for e, r in zip(ests, refs)])
+    buckets = {}
+    for i, n in enumerate(lens):
+        buckets.setdefault(_next_pow2(n + FLEN), []).append(i)
+    mine = [i for _, idxs in sorted(buckets.items())
+            for i in deal_rows(idxs, lens, dp.n_dp)[dp.i_dp]]
+    ridges = engine.sdr_at_ridges([ests[i] for i in mine],
+                                  [refs[i] for i in mine], device=dp.device)
+    out["score"] = {"S": S, "delays": delays, "rows": mine,
+                    "ridges": ridges, "first_seconds": first_s,
+                    "warm_seconds": warm_s,
+                    "repeat_bit_equal": bool(np.array_equal(
+                        S, S2, equal_nan=True)),
+                    "audio_seconds": float(lens.sum()) / FS}
+    return out
+
+
+def parallel_cli(card, pipe_root, work):
+    """Phase ``parallel``, part (d): the CLI's multi-rank layouts at the
+    flagship on the pipeline phase's corpus.  Returns what it logs."""
+    import contextlib
+    import io
+    import shutil
+
+    import yaml
+    from drnmf_torch import cli
+    from drnmf_torch.config import config_hash
+    from drnmf_torch.dsp.wav import wavread
+    from drnmf_torch.metrics.scoring import (SCORE_LABELS, SNRS,
+                                             aggregate_snr_scores)
+
+    root = os.path.join(work, "cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    model = {**PIPE_DRNMF, "epochs": 1}
+    h = config_hash(model)
+    with open(os.path.join(pipe_root, "params_data.yaml")) as fh:
+        data = yaml.safe_load(fh)
+    # the --tp run's corpus: the first files, about PAR_TP_SEQS sequences
+    with open(data["taskfile_x_train"]) as fh:
+        noisy = fh.read().split()
+    with open(data["taskfile_y_train"]) as fh:
+        clean = fh.read().split()
+    n_files, seqs = 0, 0
+    while seqs < PAR_TP_SEQS:
+        frames = wavread(noisy[n_files]).shape[1] // HOP + 1
+        seqs += -(-frames // PIPE_DATA["maxlen"])
+        n_files += 1
+    small = dict(data)
+    for split in ("train", "valid", "test"):
+        for side, files in (("x", noisy), ("y", clean)):
+            path = os.path.join(root, f"{side}_{split}.txt")
+            with open(path, "w") as fh:
+                fh.write("\n".join(files[:n_files]) + "\n")
+            small[f"taskfile_{side}_{split}"] = path
+    paths = {}
+    for name, cfg in (("data", data), ("data_small", small),
+                      ("unfolded_snmf", model), ("lstm", PIPE_LSTM)):
+        paths[name] = os.path.join(root, f"params_{name}.yaml")
+        with open(paths[name], "w") as fh:
+            yaml.safe_dump(cfg, fh)
+
+    def exp_dir(name, cached=True):
+        # the pipeline phase's dictionary and featurized splits
+        exp = os.path.join(root, f"exp_{name}")
+        os.makedirs(exp)
+        if cached:
+            shutil.copytree(os.path.join(pipe_root, "exp", "dicts"),
+                            os.path.join(exp, "dicts"))
+            for f in os.listdir(os.path.join(pipe_root, "exp")):
+                if f.startswith("tensors_"):
+                    shutil.copy(os.path.join(pipe_root, "exp", f), exp)
+        return exp
+
+    def argv(name, data_key, splits, exp):
+        return ["-c", paths[name], "-d", paths[data_key], "--exp-dir", exp,
+                "--splits", splits]
+
+    def overall(exp):
+        per_snr = []
+        for snr in SNRS:
+            with np.load(os.path.join(exp, "scores", f"scores_unfolded_"
+                                      f"snmf_{h}_test_{snr}.npz")) as f:
+                per_snr.append((f["S"], None))
+        return aggregate_snr_scores(per_snr, len(noisy)).ravel()
+
+    def losses(exp):
+        with open(os.path.join(exp, "history",
+                               f"history_unfolded_snmf_{h}"), "rb") as fh:
+            return pickle.load(fh)["on_batch_end"]["loss"]
+
+    def command(tag, args):
+        """The CLI as a user runs it, in a process of its own."""
+        t0 = time.perf_counter()
+        log_path = os.path.join(root, f"{tag}.log")
+        with open(log_path, "w") as fh:
+            proc = subprocess.run(
+                [sys.executable, "-m", "drnmf_torch.cli", *args],
+                cwd=os.path.dirname(os.path.abspath(__file__)), stdout=fh,
+                stderr=subprocess.STDOUT, timeout=2 * PAR_TIMEOUT_S)
+        with open(log_path) as fh:
+            text = fh.read()
+        check(proc.returncode == 0,
+              f"parallel: the CLI {tag} exited {proc.returncode}: "
+              f"{text[-3000:]}")
+        mesh_line = next((ln for ln in text.splitlines()
+                          if ln.startswith("mesh:")), None)
+        return mesh_line, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    single = exp_dir("single")
+    cli.main(argv("unfolded_snmf", "data", "test", single) + ["-q"])
+    single_s = time.perf_counter() - t0
+    want = overall(single)
+    runs = {}
+    for tag, extra in (("dp2", ["--dp", "2"]),
+                       ("dp2_fsdp", ["--dp", "2", "--fsdp"])):
+        exp = exp_dir(tag)
+        mesh_line, secs = command(tag, argv("unfolded_snmf", "data", "test",
+                                            exp) + extra)
+        got = overall(exp)
+        diff = np.abs(got - want)
+        tols = np.array((ILL_CONDITIONED_SDR_TOL,) + SCORE_TOLS[1:])
+        check(mesh_line is not None and "backend gloo" in mesh_line
+              and "2 ranks a card" in mesh_line,
+              f"parallel: the CLI {tag} printed the layout {mesh_line}")
+        check(bool(np.all(diff <= tols)),
+              f"parallel: the CLI {tag}'s overall scores {got} against the "
+              f"single process's {want}")
+        runs[tag] = {"seconds": secs, "mesh": mesh_line,
+                     "overall": dict(zip(SCORE_LABELS, got.tolist())),
+                     "max_abs_diff_to_single": diff.tolist()}
+
+    small_single = exp_dir("small_single", cached=False)
+    cli.main(argv("unfolded_snmf", "data_small", "", small_single)
+             + ["-q", "--dp", "1"])
+    small_tp = exp_dir("small_dp2_tp2", cached=False)
+    mesh_line, secs = command("dp2_tp2", argv(
+        "unfolded_snmf", "data_small", "", small_tp) + ["--dp", "2",
+                                                         "--tp", "2"])
+    want_loss, got_loss = losses(small_single), losses(small_tp)
+    loss_rel = float(np.max(np.abs(np.subtract(got_loss, want_loss))
+                            / np.abs(want_loss)))
+    check(mesh_line is not None and "dp=2 x tp=2 over 4 ranks" in mesh_line
+          and len(got_loss) == len(want_loss) and loss_rel <= PAR_FIT_RTOL,
+          f"parallel: the CLI's --dp 2 --tp 2 fit: {mesh_line}, losses "
+          f"{got_loss} against {want_loss}")
+    runs["dp2_tp2"] = {"seconds": secs, "mesh": mesh_line,
+                       "files": n_files, "steps": len(got_loss),
+                       "losses": got_loss, "single_losses": want_loss,
+                       "max_rel_diff": loss_rel}
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        try:
+            cli.main(argv("lstm", "data", "test", exp_dir("lstm", False))
+                     + ["--tp", "2"])
+            refused = False
+        except SystemExit:
+            refused = True
+    check(refused and "--tp applies to the DR-NMF recurrence only"
+          in err.getvalue(), "parallel: --tp 2 on an LSTM config ran")
+    return {"single_seconds": single_s,
+            "single_overall": dict(zip(SCORE_LABELS, want.tolist())),
+            "runs": runs, "lstm_tp_refused": err.getvalue().strip()[-80:]}
+
+
+def parallel_phase(card, config, params, enhanced, clean):
+    """Phase ``parallel`` (module docstring).  Returns the launches of the
+    multi-rank paths, summed over the ranks."""
+    import torch
+    from drnmf_torch.metrics import engine
+    from drnmf_torch.models import drnmf
+    from drnmf_torch.ops.snmf_mu import sparse_nmf_ed
+    from drnmf_torch.parallel import run_ranks
+    from drnmf_torch.utils.memplan import plan_memory
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke")
+    work = os.path.join(root, "parallel")
+    os.makedirs(work, exist_ok=True)
+    host = {k: v.detach().cpu().numpy() for k, v in params.items()}
+    np.savez(os.path.join(work, "flagship.npz"), **host)
+    gen = torch.Generator(device="cuda").manual_seed(2019)
+    train = train_sequences(gen, PAR_STEPS * TRAIN_BATCH, config)
+    valid = train_sequences(gen, PAR_VALID_SEQS, config)
+    np.savez(os.path.join(work, "fit_data.npz"), x=train[0], y=train[1],
+             mask=train[2], vx=valid[0], vy=valid[1], vmask=valid[2])
+    m, r, n = SNMF_TIMES_SHAPE
+    v = np.random.default_rng(2020).uniform(0.01, 1.0, (m, n)).astype(
+        np.float32)
+    np.save(os.path.join(work, "snmf_v.npy"), v)
+    snmf_kw = dict(r=r, cf="ed", sparsity=1.0, random_seed=2016)
+
+    # one process: the fit, and sparse NMF's time an iteration
+    reset_launches()
+    single = parallel_fit(None, "single", config, host, train, valid)
+
+    # the same solver in one process, its iterations timed as the ranks'
+    # are (between the divergences)
+    marks = []
+
+    def mark(*tensors):
+        if len(tensors) == 1:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        return tensors
+
+    gen = torch.Generator(device="cuda").manual_seed(2016)
+    sparse_nmf_ed(torch.from_numpy(v).cuda(),
+                  torch.rand((m, r), generator=gen, device="cuda"),
+                  torch.rand((r, n), generator=gen, device="cuda"),
+                  snmf_kw["sparsity"], torch.ones(r, dtype=torch.bool,
+                                                  device="cuda"),
+                  PAR_SNMF_ITERS, 0.0, reduce_sum=mark)
+    snmf_single = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    del v
+    want, want_delays = engine.score_all_packed(
+        *_pcm16_pair(enhanced, clean), device="cuda")
+    ests, refs = _pcm16_pair(enhanced, clean)
+    want_ridges = engine.sdr_at_ridges(ests, refs, device="cuda")
+    lens = [min(len(e), len(r_)) for e, r_ in zip(ests, refs)]
+    conditioning = reference_conditioning(
+        [r_[:k] for r_, k in zip(refs, lens)])
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(parallel_rank, PAR_RANKS,
+                      args=(work, config, {"enhanced": enhanced,
+                                           "clean": clean}, snmf_kw),
+                      device="cuda", timeout_s=PAR_TIMEOUT_S,
+                      deadline_s=2 * PAR_TIMEOUT_S)
+    group_s = time.perf_counter() - t0
+
+    # (a) every layout against the one process
+    trains = drnmf.drnmf_trainable_mask(config, params)
+    plan = plan_memory(config, n_dp=PAR_RANKS, fsdp=True)
+    fits = {}
+    for layout in ("dp", "fsdp", "tp"):
+        worst_loss = worst_param = 0.0
+        for rank, out in enumerate(ranks):
+            res = out[layout]
+            for where in ("on_batch_end", "on_epoch_end"):
+                for key, ref in single["history"][where].items():
+                    got = np.asarray(res["history"][where][key])
+                    ref = np.asarray(ref)
+                    check(bool(np.all(np.abs(got - ref)
+                                      <= PAR_FIT_RTOL * np.abs(ref))),
+                          f"parallel: {layout} rank {rank} {where} {key} "
+                          f"{got} against {ref}")
+                    worst_loss = max(worst_loss, float(np.max(
+                        np.abs(got - ref) / np.abs(ref))))
+            for k, ref in single["best"].items():
+                got = res["best"][k]
+                check(bool(np.all(np.abs(got - ref) <= PAR_FIT_ATOL
+                                  + PAR_FIT_RTOL * np.abs(ref))),
+                      f"parallel: {layout} rank {rank} parameter {k} is "
+                      f"{np.abs(got - ref).max()} from the one process's")
+                worst_param = max(worst_param,
+                                  float(np.abs(got - ref).max()))
+            launches = res["launches"]
+            if layout == "tp":
+                check(only_launched(launches),
+                      f"parallel: tp rank {rank} launched {launches}")
+            else:
+                check(launches["factored"] == PAR_STEPS + 1
+                      and launches["factored_backward"] == PAR_STEPS
+                      and only_launched(launches, "factored",
+                                        "factored_backward"),
+                      f"parallel: {layout} rank {rank} launched {launches}")
+        resident = [out[layout]["resident"] for out in ranks]
+        if layout == "fsdp":
+            check(all(rb["params"] + rb["moments"] == plan["total"]
+                      for rb in resident),
+                  f"parallel: FSDP holds {resident}, plan_memory "
+                  f"{plan['total']}")
+        fits[layout] = {
+            "ms_a_step": [out[layout]["ms_a_step"] for out in ranks],
+            "step_ms": [out[layout]["step_ms"] for out in ranks],
+            "fit_seconds": [out[layout]["fit_seconds"] for out in ranks],
+            "resident_bytes": resident,
+            "one_step_collectives": ranks[0][layout]["one_step_collectives"],
+            "max_rel_loss_diff": worst_loss,
+            "max_abs_param_diff": worst_param,
+            "launches": [out[layout]["launches"] for out in ranks]}
+    grad_bytes = 4 * sum(int(params[k].numel()) for k in trains
+                         if trains[k])
+    log("parallel_fit", card=card, backend=ranks[0]["backend"],
+        ranks=PAR_RANKS, ranks_per_device=ranks[0]["ranks_per_device"],
+        devices=[out["device"] for out in ranks], batch=TRAIN_BATCH,
+        frames_a_sequence=TRAIN_T, steps=PAR_STEPS,
+        single_ms_a_step=single["ms_a_step"],
+        single_step_ms=single["step_ms"],
+        single_fit_seconds=single["fit_seconds"], layouts=fits,
+        trainable_gradient_bytes=grad_bytes,
+        plan_memory_fsdp={"params": plan["params"],
+                          "opt_state": plan["opt_state"],
+                          "total": plan["total"]},
+        plan_memory_replicated=plan_memory(config)["total"])
+
+    # (b) sparse NMF
+    snmf = [out["snmf"] for out in ranks]
+    for rank, res in enumerate(snmf):
+        check(res["n_iter"] == res["ref_n_iter"] == PAR_SNMF_ITERS
+              and all(e <= SNMF_RTOL
+                      for e in res["max_rel_err_of_max"].values())
+              and res["launches"]["pass1"] == PAR_SNMF_ITERS
+              and res["launches"]["pass2"] == PAR_SNMF_ITERS
+              and only_launched(res["launches"], "pass1", "pass2"),
+              f"parallel: sharded SNMF rank {rank}: {res}")
+    log("parallel_snmf", card=card, shape=[m, r, n], ranks=PAR_RANKS,
+        iterations=PAR_SNMF_ITERS,
+        ms_an_iteration=[res["ms_an_iteration"] for res in snmf],
+        iteration_ms=[res["iteration_ms"] for res in snmf],
+        call_seconds=[res["call_seconds"] for res in snmf],
+        single_ms_an_iteration=statistics.median(snmf_single),
+        single_iteration_ms=snmf_single,
+        max_rel_err_of_max=[res["max_rel_err_of_max"] for res in snmf],
+        statistics_bytes_an_iteration=2 * 4 * m * r,
+        collective_bytes=[res["collective_bytes"] for res in snmf],
+        collectives=[res["collectives"] for res in snmf],
+        launches=[res["launches"] for res in snmf])
+
+    # (c) scoring: every rank's table against the one process's engine,
+    # each row's SDR by ridge from the batch its rank scored it in
+    got_ridges = np.zeros_like(want_ridges)
+    for out in ranks:
+        got_ridges[out["score"]["rows"]] = out["score"]["ridges"]
+    worst = other_ridge = worst_ill = None
+    for rank, out in enumerate(ranks):
+        sc = out["score"]
+        check(np.array_equal(sc["delays"], want_delays),
+              f"parallel: sharded scoring rank {rank}: other delays")
+        worst, other_ridge, worst_ill = hold_scores(
+            sc["S"], want, got_ridges, want_ridges, conditioning)
+    audio_s = ranks[0]["score"]["audio_seconds"]
+    log("parallel_score", card=card, files=len(enhanced), ranks=PAR_RANKS,
+        audio_seconds=audio_s,
+        first_seconds=[out["score"]["first_seconds"] for out in ranks],
+        warm_seconds=[out["score"]["warm_seconds"] for out in ranks],
+        score_rtf_warm=audio_s / max(out["score"]["warm_seconds"]
+                                     for out in ranks),
+        repeat_bit_equal=[out["score"]["repeat_bit_equal"] for out in ranks],
+        max_abs_diff_to_single=dict(zip(("SDR", "SNR", "SegSNR local",
+                                         "SegSNR global", "PESQ", "STOI"),
+                                        worst)),
+        rows_kept_at_another_ridge=other_ridge,
+        ill_conditioned_sdr_max_abs_diff=worst_ill)
+
+    # (d) the command line
+    t0 = time.perf_counter()
+    cli_runs = parallel_cli(card, os.path.join(root, "pipeline"), work)
+    log("parallel_cli", card=card, seconds=time.perf_counter() - t0,
+        **cli_runs)
+
+    launches = {k: 0 for k in read_launches()}
+    for out in ranks:
+        for part in (out["dp"]["launches"], out["fsdp"]["launches"],
+                     out["snmf"]["launches"]):
+            for k, c in part.items():
+                launches[k] += c
+    log("parallel_done", group_seconds=group_s,
+        phase_seconds=time.perf_counter() - t_phase, launches=launches)
+    return launches
+
+
+def _pcm16_pair(enhanced, clean):
+    """The enhanced and clean wavs as PCM16 arrays (the native reader)."""
+    from drnmf_torch.data.native_loader import read_batch_i16
+
+    out = []
+    for paths in (enhanced, clean):
+        x, lens = read_batch_i16(paths)
+        out.append([x[i, :lens[i]] for i in range(len(paths))])
+    return out
+
+
 def main():
     import torch
 
@@ -2721,11 +3305,15 @@ def main():
 
     snmf_rows = snmf_phases(card, config)
 
+    # 16. multi-rank paths: two ranks of one gloo group on the card
+    parallel_launches = parallel_phase(card, config, params, enhanced, clean)
+
     def by_path(kernel):
         paths = {"main": main_launches, "dense_main": dense_launches,
                  **multi_launches, "serve": serve_launches,
                  "paced": paced_launches, "train": train_launches,
-                 "pipeline": pipeline_launches}
+                 "pipeline": pipeline_launches,
+                 "parallel": parallel_launches}
         return {path: counts[kernel] for path, counts in paths.items()
                 if counts[kernel]}
 
@@ -2770,10 +3358,15 @@ def main():
         "library_ms": None,
     }, {**backward_row, "launches_by_path": by_path("factored_backward")}]
     for row in snmf_rows:  # the scored pipeline's dictionary stage
-        row["launches_by_path"]["pipeline"] = pipeline_launches[
-            row["name"].replace("snmf_mu_", "")]
+        for path, counts in (("pipeline", pipeline_launches),
+                             ("parallel", parallel_launches)):
+            row["launches_by_path"][path] = counts[
+                row["name"].replace("snmf_mu_", "")]
     check(all(row["launches"] > 0 for row in scan_rows + snmf_rows),
           "a kernel was launched on no path")
+    check(all(parallel_launches[k] > 0 for k in (
+        "factored", "factored_backward", "pass1", "pass2")),
+          f"the parallel paths launched {parallel_launches}")
     log("done", seconds_after_device_phase=time.perf_counter() - t_start)
     print(json.dumps({"kernels": scan_rows + snmf_rows}), flush=True)
     print(card, flush=True)

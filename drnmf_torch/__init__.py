@@ -20,7 +20,11 @@ to find:
 - ``metrics``  -- SDR, SNR, SegSNR, PESQ and STOI with the delay guard,
                   batched on the device (``metrics.engine``), and the
                   cached scoring of taskfiles
-- ``utils``    -- the hash-keyed SNMF dictionary cache; ``StageTimer``
+- ``utils``    -- the hash-keyed SNMF dictionary cache; ``StageTimer``;
+                  ``memplan`` (a fit's bytes a rank)
+- ``parallel`` -- multi-rank runs on ``torch.distributed``: the process
+                  group and layouts (dp, tp, FSDP), sharded sparse NMF,
+                  the tensor-parallel recurrence
 - ``pipeline`` -- the experiment: data, dictionary, fit, masks, wavs,
                   scores
 - ``reporting`` -- score tables and learning curves from an experiment

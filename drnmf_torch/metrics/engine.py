@@ -114,7 +114,8 @@ def _as_f32(x, n):
 
 
 def _score_pass(work, S, delays, flen, frame_len, fs, compute_pesq,
-                slice_fn, commit_delay, device):
+                slice_fn, commit_delay, device, bucket_fn=None,
+                fused_fn=None):
     """One engine pass over ``work`` (bucket items ``[nfft, idxs, (est_c,
     ref_c, est_off, ref_off, lengths), pending mask, result cache, host
     offsets]``): the six-metric pass at the first ridge, then the retry
@@ -123,14 +124,25 @@ def _score_pass(work, S, delays, flen, frame_len, fs, compute_pesq,
     shifted host signals).  Commits finished rows into ``S`` (and
     ``delays`` when ``commit_delay``) and clears them from each item's
     pending mask.  Every bucket of a round is queued before any result is
-    read, and each is read with one copy to the host."""
+    read, and each is read with one copy to the host.  ``bucket_fn(w,
+    ridge)`` / ``fused_fn(w, ridge)``: the (B, 7) first pass and the (B, 4)
+    retry of an item, rows in ``idxs`` order (by default the engine's own
+    on the item's buffers; ``metrics.sharded`` scores each rank's rows and
+    gathers them)."""
+    if bucket_fn is None:
+        def bucket_fn(w, ridge):
+            return _engine_bucket(w, ridge, flen, frame_len, fs,
+                                  compute_pesq)
+    if fused_fn is None:
+        def fused_fn(w, ridge):
+            return _fused_packed_any(w, ridge, flen, frame_len)
+
     def commit(w, vals, rows):
         S[w[1][rows]] = vals[rows, :6]
         if commit_delay:
             delays[w[1][rows]] = np.round(vals[rows, 6]).astype(np.int64)
 
-    first = [(w, _engine_bucket(w, RIDGES[0], flen, frame_len, fs,
-                                compute_pesq)) for w in work]
+    first = [(w, bucket_fn(w, RIDGES[0])) for w in work]
     for w, res in first:
         w[4] = res.cpu().numpy()  # (B, 7), kept for the retry merges
         newly = w[3] & np.isfinite(w[4][:, 0])
@@ -138,8 +150,7 @@ def _score_pass(work, S, delays, flen, frame_len, fs, compute_pesq,
         w[3] = w[3] & ~newly
 
     for ridge in RIDGES[1:]:
-        pending = [(w, _fused_packed_any(w, ridge, flen, frame_len))
-                   for w in work if w[3].any()]
+        pending = [(w, fused_fn(w, ridge)) for w in work if w[3].any()]
         for w, res in pending:
             vals = w[4]
             vals[:, :4] = res.cpu().numpy()

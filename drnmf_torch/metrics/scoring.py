@@ -93,7 +93,7 @@ def compute_scores(est_file, ref_file, compute_pesq=True, align="guard",
 
 def score_taskfiles(enhanced_files, reference_files, savefile=None,
                     compute_pesq=True, flag_rescore=False, n_workers=8,
-                    verbose=False, align="guard", device="cuda"):
+                    verbose=False, align="guard", device="cuda", mesh=None):
     """Score a list of file pairs on ``device``, with a cache.  Returns
     (S, labels): S is (n_files, 6).
 
@@ -141,11 +141,18 @@ def score_taskfiles(enhanced_files, reference_files, savefile=None,
         if engine_path:
             # raw PCM16 to the engine: all six metrics on the device, one
             # packed transfer a bucket, the delay guard included
-            from .engine import score_all_packed
+            if mesh is not None and align != "full":
+                from .sharded import score_all_sharded
 
-            S, _ = score_all_packed(ests, refs, fs_ref[0],
-                                    compute_pesq=compute_pesq, align=align,
-                                    device=device)
+                S, _ = score_all_sharded(ests, refs, mesh, fs=fs_ref[0],
+                                         compute_pesq=compute_pesq,
+                                         align=align)
+            else:
+                from .engine import score_all_packed
+
+                S, _ = score_all_packed(ests, refs, fs_ref[0],
+                                        compute_pesq=compute_pesq,
+                                        align=align, device=device)
             scores = list(S)
         elif len(set(fs_ref)) == 1:
             from .fused import fused_metrics_packed
@@ -205,16 +212,18 @@ def score_taskfiles(enhanced_files, reference_files, savefile=None,
         for label, val in zip(SCORE_LABELS, S.mean(axis=0)):
             print(f"  mean {label}: {val:.3f}")
 
-    if savefile is not None:
+    if savefile is not None and (mesh is None or mesh.rank == 0):
         os.makedirs(os.path.dirname(os.path.abspath(savefile)), exist_ok=True)
         np.savez(savefile, S=S, labels=np.array(SCORE_LABELS, dtype="S"),
                  align=np.array(align))
+    if mesh is not None:
+        mesh.barrier()
     return S, list(SCORE_LABELS)
 
 
 def score_dataset(dataset, description, snr_name=None, savefile=None,
                   datadir="", compute_pesq=True, flag_rescore=False,
-                  verbose=False, device="cuda"):
+                  verbose=False, device="cuda", mesh=None):
     """Score a dataset's enhanced outputs, optionally one SNR bucket.
 
     As AudioDataset.score_audio (audio_dataset.py:399-435): the enhanced
@@ -235,7 +244,7 @@ def score_dataset(dataset, description, snr_name=None, savefile=None,
 
     return score_taskfiles(
         enh, refs, savefile=savefile, compute_pesq=compute_pesq,
-        flag_rescore=flag_rescore, verbose=verbose, device=device)
+        flag_rescore=flag_rescore, verbose=verbose, device=device, mesh=mesh)
 
 
 def aggregate_snr_scores(per_snr_scores, n_wavfiles):

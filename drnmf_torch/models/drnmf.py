@@ -286,19 +286,39 @@ def _h0(params, config):
     return params["h0"]
 
 
+class BatchRows:
+    """A dropout generator's view of a batch split over ranks: the masks
+    are drawn for the global batch of ``total`` rows and a call holding
+    rows ``[start, start + B)`` keeps those (its padding rows, past
+    ``total``, get ones), so every rank draws what one process would."""
+
+    def __init__(self, generator, total: int, start: int):
+        self.generator, self.total, self.start = generator, total, start
+
+
 def dropout_masks(config: DRNMFConfig, bsz: int, f: int, generator,
                   device):
     """Variational dropout's keep masks (b_u (B, 2r), b_w (B, F)), each
     Bernoulli(1 - rate) scaled by 1/(1 - rate), one per sequence, drawn
     with ``generator`` (b_u first); None for a rate of 0.  The JAX
-    package's ``_dropout_mask`` (Keras K.dropout)."""
+    package's ``_dropout_mask`` (Keras K.dropout).  A :class:`BatchRows`
+    generator draws for its global batch and keeps this call's rows (ones
+    on padding rows)."""
+    rows = None
+    if isinstance(generator, BatchRows):
+        rows = generator
+        generator = rows.generator
 
     def draw(rate, width):
         if rate <= 0:
             return None
-        keep = torch.rand((bsz, width), generator=generator,
-                          device=device) < 1.0 - rate
-        return keep.to(torch.float32) / (1.0 - rate)
+        n = bsz if rows is None else rows.total
+        keep = (torch.rand((n, width), generator=generator,
+                           device=device) < 1.0 - rate).to(torch.float32)
+        if rows is not None:
+            keep = torch.cat([keep, keep.new_ones((bsz, width))])[
+                rows.start:rows.start + bsz]
+        return keep / (1.0 - rate)
 
     return (draw(config.dropout_U, config.hidden_dim),
             draw(config.dropout_W, f))

@@ -16,8 +16,9 @@ Routing (snmf.py:269-271 of the JAX package, by rule, with no knob): beta=2,
 every ``h`` updated and a scalar sparsity go to :func:`ops.snmf_mu.
 sparse_nmf_ed`, whose passes are kernels B4/B5 on the card and their plain
 versions on the CPU; everything else runs :func:`_sparse_nmf_core`, a plain
-PyTorch loop (the JAX package's XLA core).  ``sparse_nmf_sharded`` is not
-ported yet (ROADMAP.md, queue A, item 10).
+PyTorch loop (the JAX package's XLA core).  Both take optional reductions
+over ranks, through which ``parallel.mesh.sparse_nmf_sharded`` splits the
+frames over a group.
 """
 
 from dataclasses import dataclass, replace
@@ -122,10 +123,14 @@ def _divergence(v, lam, beta):
 
 
 def _sparse_nmf_core(v, w0, h0, sparsity, w_mask, h_mask, beta, max_iter,
-                     conv_eps):
+                     conv_eps, reduce_sum=None, reduce_min=None):
     """The MU optimization of one frame chunk as a plain PyTorch loop.
-    ``sparsity``: a 0-dim or (r, 1) tensor.  Returns
+    ``sparsity``: a 0-dim, (r, 1) or (r, n) tensor.  ``reduce_sum(*t)`` /
+    ``reduce_min(t)``: where the frames are split over ranks, the sum (min)
+    over them of the W statistics and the costs (of v's floor), so every
+    rank runs the single-process iteration.  Returns
     ``(w, h, divs, costs, n_iter)`` with the ``n_iter`` iterations run."""
+    reduce_sum = reduce_sum or (lambda *t: t)
     update_w = bool(w_mask.any())
     update_h = bool(h_mask.any())
 
@@ -137,6 +142,8 @@ def _sparse_nmf_core(v, w0, h0, sparsity, w_mask, h_mask, beta, max_iter,
     if beta != 2.0:
         # keep zero entries of v slightly positive (sparse_nmf_gpu.m:201-205)
         vmin = torch.where(v > 0, v, torch.inf).min()
+        if reduce_min is not None:
+            vmin = reduce_min(vmin)
         v = torch.where(v == 0, vmin, v)
 
     lam = (w @ h).clamp_min(FLR)
@@ -146,11 +153,11 @@ def _sparse_nmf_core(v, w0, h0, sparsity, w_mask, h_mask, beta, max_iter,
             h = _h_update(v, w, h, lam, sparsity, h_mask, beta)
             lam = (w @ h).clamp_min(FLR)
         if update_w:
-            w = _w_update_from_stats(w, _w_statistics(v, w, h, lam, beta),
-                                     w_mask, beta)
+            stats = reduce_sum(*_w_statistics(v, w, h, lam, beta))
+            w = _w_update_from_stats(w, stats, w_mask, beta)
             lam = (w @ h).clamp_min(FLR)
-        div = _divergence(v, lam, beta)
-        cost = div + (sparsity * h).sum()
+        div, sp = reduce_sum(_divergence(v, lam, beta), (sparsity * h).sum())
+        cost = div + sp
         divs.append(div)
         costs.append(cost)
         if converged(costs, conv_eps):
@@ -201,6 +208,24 @@ def _prepare(v_shape, params: SNMFParams, generator, device):
             mask(params.w_update_ind), mask(params.h_update_ind))
 
 
+def _solve(v, w0, h0, sparsity, w_mask, h_mask, params: SNMFParams,
+           reduce_sum=None, reduce_min=None):
+    """The routing rule of the module docstring on prepared operands:
+    ``sparse_nmf_ed`` (B4/B5) or ``_sparse_nmf_core``.  The reductions: see
+    ``_sparse_nmf_core``."""
+    beta = params.resolved_beta()
+    if (beta == 2.0 and bool(h_mask.all())
+            and np.asarray(params.sparsity).size == 1):
+        return sparse_nmf_ed(
+            v, w0, h0, float(np.asarray(params.sparsity).reshape(-1)[0]),
+            w_mask, max_iter=int(params.max_iter),
+            conv_eps=float(params.conv_eps), reduce_sum=reduce_sum)
+    return _sparse_nmf_core(
+        v, w0, h0, sparsity, w_mask, h_mask, beta=beta,
+        max_iter=int(params.max_iter), conv_eps=float(params.conv_eps),
+        reduce_sum=reduce_sum, reduce_min=reduce_min)
+
+
 def _to_numpy(t):
     return t.detach().cpu().numpy()
 
@@ -222,17 +247,8 @@ def sparse_nmf(v, params: SNMFParams, generator=None,
     v = torch.as_tensor(v, dtype=torch.float32).to(device).contiguous()
     w0, h0, sparsity, w_mask, h_mask = _prepare(v.shape, params, generator,
                                                 device)
-    beta = params.resolved_beta()
-    if (beta == 2.0 and bool(h_mask.all())
-            and np.asarray(params.sparsity).size == 1):
-        w, h, divs, costs, n_iter = sparse_nmf_ed(
-            v, w0, h0, float(np.asarray(params.sparsity).reshape(-1)[0]),
-            w_mask, max_iter=int(params.max_iter),
-            conv_eps=float(params.conv_eps))
-    else:
-        w, h, divs, costs, n_iter = _sparse_nmf_core(
-            v, w0, h0, sparsity, w_mask, h_mask, beta=beta,
-            max_iter=int(params.max_iter), conv_eps=float(params.conv_eps))
+    w, h, divs, costs, n_iter = _solve(v, w0, h0, sparsity, w_mask, h_mask,
+                                       params)
     divs, costs = _to_numpy(divs), _to_numpy(costs)
     if device_output:
         return SNMFResult(w=w, h=h, div=divs, cost=costs, n_iter=n_iter)

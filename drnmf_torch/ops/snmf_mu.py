@@ -190,7 +190,8 @@ def snmf_mu_pass2(v, h, w):
 PLAIN_PASSES = (snmf_mu_pass1_reference, snmf_mu_pass2_reference)
 
 
-def mu_ed_iteration(v, h, w, sparsity, w_mask, passes=None, update_w=None):
+def mu_ed_iteration(v, h, w, sparsity, w_mask, passes=None, update_w=None,
+                    reduce_sum=None):
     """One MU iteration: B4, the normalization-aware W update with column
     renorm (sparse_nmf_gpu.m:232-264; plain PyTorch on (m, r) tensors),
     then B5 on the new W.  ``w_mask`` (r,) bool: the columns that update.
@@ -198,12 +199,17 @@ def mu_ed_iteration(v, h, w, sparsity, w_mask, passes=None, update_w=None):
     versions, :data:`PLAIN_PASSES`, for a parity run).  ``update_w``:
     ``bool(w_mask.any())`` where the caller already knows it (it costs a
     host read); when False W comes back as it went in, with no update and
-    no renorm, as in the JAX package's default route.
+    no renorm, as in the JAX package's default route.  ``reduce_sum(*t)``:
+    where the frames are split over ranks, the sum over them of B4's W
+    statistics and ``sum(sp h')`` (between B4 and the W update) and of B5's
+    divergence (after B5).
     Returns ``(h_new, w_new, div, cost)``; div and cost are 0-dim tensors."""
     pass1, pass2 = passes or (snmf_mu_pass1, snmf_mu_pass2)
     if update_w is None:
         update_w = bool(w_mask.any())
     h_new, a, b, sp_sum = pass1(v, h, w, sparsity)
+    if reduce_sum is not None:
+        a, b, sp_sum = reduce_sum(a, b, sp_sum)
     w_new = w
     if update_w:
         dpw = b + (a * w).sum(dim=0, keepdim=True) * w
@@ -213,11 +219,13 @@ def mu_ed_iteration(v, h, w, sparsity, w_mask, passes=None, update_w=None):
         # like the TPU solver, renormalises every column, frozen ones too
         w_new = w_new / (w_new * w_new).sum(dim=0, keepdim=True).sqrt()
     div = pass2(v, h_new, w_new)
+    if reduce_sum is not None:
+        (div,) = reduce_sum(div)
     return h_new, w_new, div, div + sp_sum
 
 
 def sparse_nmf_ed(v, w0, h0, sparsity, w_mask, max_iter, conv_eps,
-                  passes=None):
+                  passes=None, reduce_sum=None):
     """Full ED sparse NMF with the MU passes (``sparse_nmf_ed_pallas``).
 
     v (m, n), w0 (m, r), h0 (r, n) float32 tensors on one device;
@@ -227,7 +235,7 @@ def sparse_nmf_ed(v, w0, h0, sparsity, w_mask, max_iter, conv_eps,
     ``conv_eps`` relative to the last (one host read per iteration, only
     then).  With no column of W to update, W stays exactly the normalised
     ``w0``.  Iterates on the frames padded with zero frames to a multiple
-    of four.  ``passes``: see :func:`mu_ed_iteration`.
+    of four.  ``passes`` and ``reduce_sum``: see :func:`mu_ed_iteration`.
     Returns ``(w, h, divs, costs, n_iter)``; divs and costs hold the
     ``n_iter`` iterations run."""
     wn = (w0 * w0).sum(dim=0).sqrt()
@@ -242,7 +250,7 @@ def sparse_nmf_ed(v, w0, h0, sparsity, w_mask, max_iter, conv_eps,
     divs, costs = [], []
     for it in range(max_iter):
         h, w, div, cost = mu_ed_iteration(v, h, w, sparsity, w_mask, passes,
-                                          update_w)
+                                          update_w, reduce_sum)
         divs.append(div)
         costs.append(cost)
         if converged(costs, conv_eps):

@@ -15,8 +15,17 @@ then scored (``score_split``: the six metrics a file by SNR condition,
 cached under ``<folder_exp>/scores/``, and the overall means);
 ``flag_score=False`` enhances without scoring (where the JAX package's
 ``flag_score=False`` skips the enhancement as well; ``splits=()`` trains
-only).  The mesh, FSDP and tp arguments wait for ROADMAP.md queue A,
-item 10.  Each ``run_*`` returns its results with a :class:`StageTimer`
+only).
+
+``mesh`` (a ``parallel.mesh.Mesh``; every rank of the group calls the
+runner with the same arguments): the fit runs on all ranks (rows over
+``dp``; ``fsdp: true`` in the model config shards parameters and moments;
+a ``tp`` axis trains DR-NMF through ``parallel.drnmf_apply_tp_dp``,
+without dropout) and each split's scoring splits its files over ``dp``.
+Rank 0 alone writes the featurization caches, the dictionary, the
+checkpoints, the enhanced wavs and the score files (it alone predicts and
+reconstructs); every rank waits at a barrier before reading them.  Each
+``run_*`` returns its results with a :class:`StageTimer`
 (``results["timer"]``) and each scored split's ``(overall, per_snr)``
 under its name: ``dictionary`` and ``train``, then ``load_tensors``,
 ``predict_irm``, ``reconstruct`` and ``score`` for each split, named
@@ -44,6 +53,8 @@ from .metrics.scoring import (SCORE_LABELS, SNRS, aggregate_snr_scores,
 from .models import (LSTMConfig, drnmf_forward, drnmf_trainable_mask,
                      ensure_fold_valid, init_lstm_params, lstm_forward,
                      snmf_infer_irm)
+from .models.drnmf import step_mask_from_input
+from .parallel import drnmf_apply_tp_dp
 from .train import (TrainConfig, load_checkpoint, masked_mse_signal_approx,
                     snmf_pretrain_loss, train_model, train_snmf,
                     train_state_incomplete)
@@ -208,9 +219,11 @@ def reconstruct_split(dataset, irm, mask, description, fs=None,
 
 
 def score_split(dataset, description, datadir, compute_pesq=True,
-                flag_rescore=False, verbose=True, device="cuda"):
+                flag_rescore=False, verbose=True, device="cuda", mesh=None):
     """Per-SNR scoring and the overall aggregate (enhance.py:1396-1433).
-    Returns (overall (1, 6), [(S, labels) a scored SNR condition])."""
+    Returns (overall (1, 6), [(S, labels) a scored SNR condition]).
+    ``mesh``: each condition's files split over its ``dp`` ranks
+    (``metrics.sharded``), the same scores."""
     per_snr = []
     for snr_name in SNRS:
         refs = [w for w in dataset.y_wavfiles if f"/{snr_name}/" in w]
@@ -221,7 +234,7 @@ def score_split(dataset, description, datadir, compute_pesq=True,
         per_snr.append(score_dataset(
             dataset, description, snr_name=snr_name, datadir=datadir,
             compute_pesq=compute_pesq, flag_rescore=flag_rescore,
-            device=device))
+            device=device, mesh=mesh))
     overall = aggregate_snr_scores(per_snr, len(dataset.y_wavfiles))
     if verbose:
         for label, val in zip(SCORE_LABELS, overall.ravel()):
@@ -237,25 +250,43 @@ def _score_stage(results, timer, ds, desc, split, scorer, device):
             results[split] = scorer(ds, desc)
 
 
+def _first(mesh, fn):
+    """``fn(True)`` without a mesh; with one, on rank 0 first and then
+    ``fn(False)`` on the others (``Mesh.rank0_first``)."""
+    return fn(True) if mesh is None else mesh.rank0_first(fn)
+
+
+def _rank0(mesh):
+    return mesh is None or mesh.rank == 0
+
+
+def _barrier(mesh):
+    if mesh is not None:
+        mesh.barrier()
+
+
 def _enhance_splits(datasets, splits, params_data, folder_exp, apply_fn,
-                    params, mask_value, prefix, timer, device, scorer):
-    """Predict, reconstruct and score each split; the stages go to
-    ``timer``.  Returns the scored splits' results."""
+                    params, mask_value, prefix, timer, device, scorer,
+                    mesh=None):
+    """Predict, reconstruct (rank 0 under a mesh) and score each split; the
+    stages go to ``timer``.  Returns the scored splits' results."""
     sync = device.type == "cuda"
     results = {}
     for split in splits:
         ds = datasets[split]
         audio_s = dataset_audio_seconds(ds)
         with timer.stage(f"load_tensors:{split}"):
-            x, _, mask = _full_tensors(datasets, split, params_data,
-                                       folder_exp)
-        with timer.stage(f"predict_irm:{split}", audio_seconds=audio_s,
-                         sync=sync, group=split):
-            irm = predict_irm(apply_fn, params, x, mask_value=mask_value,
-                              device=device)
-        with timer.stage(f"reconstruct:{split}", audio_seconds=audio_s,
-                         sync=sync, group=split):
-            reconstruct_split(ds, irm, mask, f"{prefix}_{split}")
+            x, _, mask = _first(mesh, lambda first: _full_tensors(
+                datasets, split, params_data, folder_exp))
+        if _rank0(mesh):
+            with timer.stage(f"predict_irm:{split}", audio_seconds=audio_s,
+                             sync=sync, group=split):
+                irm = predict_irm(apply_fn, params, x, mask_value=mask_value,
+                                  device=device)
+            with timer.stage(f"reconstruct:{split}", audio_seconds=audio_s,
+                             sync=sync, group=split):
+                reconstruct_split(ds, irm, mask, f"{prefix}_{split}")
+        _barrier(mesh)
         _score_stage(results, timer, ds, f"{prefix}_{split}", split, scorer,
                      device)
     return results
@@ -282,22 +313,22 @@ def _dict_from_config(params_model, params_data, datasets, folder_exp,
     return w_noisy, params_snmf
 
 
-def _start(params_data, folder_exp, device):
-    """What every runner does first: the device, the folders and the
-    datasets."""
-    device = resolve_device(device)
-    ensure_experiment_dirs(folder_exp)
+def _start(params_data, folder_exp, device, mesh=None):
+    """What every runner does first: the device (the mesh's where one is
+    given), the folders and the datasets."""
+    device = resolve_device(device) if mesh is None else mesh.device
+    _first(mesh, lambda first: ensure_experiment_dirs(folder_exp))
     return device, build_datasets(params_data, device=device)
 
 
 def _scorer(flag_score, folder_exp, compute_pesq, flag_rescore, verbose,
-            device):
+            device, mesh=None):
     """``score_split`` with a run's options, or None without
     ``flag_score``."""
     return (functools.partial(score_split, datadir=folder_exp + "/",
                               compute_pesq=compute_pesq,
                               flag_rescore=flag_rescore, verbose=verbose,
-                              device=device)
+                              device=device, mesh=mesh)
             if flag_score else None)
 
 
@@ -306,6 +337,20 @@ def _dicts_dir(folder_exp, path_dicts):
         path_dicts = os.path.join(folder_exp, "dicts") + "/"
         os.makedirs(path_dicts, exist_ok=True)
     return path_dicts
+
+
+def _dictionary(params_model, params_data, datasets, folder_exp, path_dicts,
+                flag_recompute, verbose, device, mesh):
+    """The run's dictionary: computed and cached on rank 0, read from the
+    cache by the others."""
+    return _first(mesh, lambda first: _dict_from_config(
+        params_model, params_data, datasets, folder_exp, path_dicts,
+        flag_recompute and first, verbose and first, device))
+
+
+def _write_config(params_model, path, mesh):
+    if _rank0(mesh):
+        dump_yaml(params_model, path)
 
 
 def _train_config(params_model, verbose, learning_rate, clipnorm):
@@ -337,21 +382,26 @@ def _load_params(path):
     return {k: np.asarray(v) for k, v in params.items()}
 
 
+def _fsdp(params_model, mesh):
+    return mesh is not None and bool(params_model.get("fsdp", False))
+
+
 def run_unfolded_snmf(params_model, params_data, folder_exp, path_dicts=None,
                       flag_recompute=False, flag_score=True,
                       compute_pesq=True, verbose=True,
                       splits=("valid", "test"), flag_rescore=False,
-                      device="cuda"):
+                      device="cuda", mesh=None):
     """The 'unfolded_snmf' branch of the reference driver
-    (enhance.py:933-1236).  Returns (best_params, config, results)."""
-    device, datasets = _start(params_data, folder_exp, device)
+    (enhance.py:933-1236).  Returns (best_params, config, results).
+    ``mesh``: see the module docstring."""
+    device, datasets = _start(params_data, folder_exp, device, mesh)
     path_dicts = _dicts_dir(folder_exp, path_dicts)
     timer = StageTimer()
     sync = device.type == "cuda"
     with timer.stage("dictionary", sync=sync):
-        w_noisy, _ = _dict_from_config(params_model, params_data, datasets,
-                                       folder_exp, path_dicts,
-                                       flag_recompute, verbose, device)
+        w_noisy, _ = _dictionary(params_model, params_data, datasets,
+                                 folder_exp, path_dicts, flag_recompute,
+                                 verbose, device, mesh)
 
     input_dim = int(params_data["params_stft"]["N"]) // 2 + 1
     config = drnmf_config_from_params(
@@ -360,10 +410,10 @@ def run_unfolded_snmf(params_model, params_data, folder_exp, path_dicts=None,
                                   params_data.get("transform_y", "mag")))
     params = init_drnmf_params(config, w_noisy, device=device)
 
-    # run control ('resume'; 'fsdp' in the JAX package) stays out of the hash
+    # run control ('resume', 'fsdp') stays out of the hash
     h = config_hash(params_model, exclude=("resume", "fsdp"))
-    dump_yaml(params_model, os.path.join(
-        folder_exp, "configs", f"params_unfolded_snmf_{h}.yaml"))
+    _write_config(params_model, os.path.join(
+        folder_exp, "configs", f"params_unfolded_snmf_{h}.yaml"), mesh)
     savefile = os.path.join(folder_exp, "models",
                             f"model_unfolded_snmf_{h}.npz")
     histfile = os.path.join(folder_exp, "history",
@@ -378,15 +428,32 @@ def run_unfolded_snmf(params_model, params_data, folder_exp, path_dicts=None,
         return masked_mse_signal_approx(irm, x, y, mask)
 
     use_dropout = config.dropout_W > 0 or config.dropout_U > 0
+    fit_loss_fn = loss_fn
+    if mesh is not None and mesh.n_tp > 1:
+        # the recurrence split over tp (drnmf_tpu/pipeline.py:320-335);
+        # exact, so checkpoints and scores do not depend on the layout
+        if use_dropout:
+            raise NotImplementedError(
+                "--tp training does not support dropout_W/dropout_U "
+                "(the tp scan implements the plain cell only)")
+
+        def fit_loss_fn(p, x, y, mask):
+            irm = drnmf_apply_tp_dp(
+                p, config, x, step_mask_from_input(x, config.mask_value),
+                mesh)
+            return masked_mse_signal_approx(irm, x, y, mask)
+
     pretrain = bool(params_model.get("pretrain_with_snmf_cost", False))
     savefile_pretrain = savefile.replace(".npz", "_pretrain.npz")
     need_train = _needs_training(params_model, savefile, flag_recompute)
     need_pretrain = pretrain and (flag_recompute
                                   or not os.path.exists(savefile_pretrain))
+    _barrier(mesh)  # every rank has looked before rank 0 writes
     if need_train or need_pretrain:
-        train_data, valid_data = _train_tensors(datasets, params_data,
-                                                folder_exp)
+        train_data, valid_data = _first(mesh, lambda first: _train_tensors(
+            datasets, params_data, folder_exp))
         tc = _train_config(params_model, verbose, 1e-3, 0.0)
+    layout = dict(mesh=mesh, fsdp=_fsdp(params_model, mesh), device=device)
 
     if pretrain:
         # SNMF-cost pretraining (enhance.py:1024-1120): the unfolded
@@ -409,7 +476,7 @@ def run_unfolded_snmf(params_model, params_data, folder_exp, path_dicts=None,
                             trainable_mask=drnmf_trainable_mask(config,
                                                                 params),
                             savefile=savefile_pretrain,
-                            histfile=histfile + "_pretrain", device=device)
+                            histfile=histfile + "_pretrain", **layout)
         params = _load_params(savefile_pretrain)
         config = ensure_fold_valid(config, params, verbose=verbose)
 
@@ -419,14 +486,13 @@ def run_unfolded_snmf(params_model, params_data, folder_exp, path_dicts=None,
             config = ensure_fold_valid(config, params, verbose=verbose)
         with timer.stage("train", sync=sync):
             best_params, _ = train_model(
-                params, train_loss_fn if use_dropout else loss_fn,
+                params, train_loss_fn if use_dropout else fit_loss_fn,
                 train_data, valid_data, tc,
                 trainable_mask=drnmf_trainable_mask(config, params),
                 savefile=savefile, histfile=histfile,
-                eval_loss_fn=loss_fn if use_dropout else None,
+                eval_loss_fn=fit_loss_fn if use_dropout else None,
                 loss_takes_rng=use_dropout,
-                resume=bool(params_model.get("resume", False)),
-                device=device)
+                resume=bool(params_model.get("resume", False)), **layout)
     else:
         best_params = _load_params(savefile)
     config = ensure_fold_valid(config, best_params, verbose=verbose)
@@ -437,7 +503,7 @@ def run_unfolded_snmf(params_model, params_data, folder_exp, path_dicts=None,
         params_from_numpy(best_params, device), config.mask_value,
         f"unfolded_snmf_{h}", timer, device,
         _scorer(flag_score, folder_exp, compute_pesq, flag_rescore, verbose,
-                device))
+                device, mesh), mesh)
     if verbose:
         print(f"Timing:\n{timer.report()}")
     return best_params, config, {**results, "timer": timer}
@@ -445,10 +511,11 @@ def run_unfolded_snmf(params_model, params_data, folder_exp, path_dicts=None,
 
 def run_lstm(params_model, params_data, folder_exp, flag_recompute=False,
              flag_score=True, compute_pesq=True, verbose=True,
-             splits=("valid", "test"), flag_rescore=False, device="cuda"):
+             splits=("valid", "test"), flag_rescore=False, device="cuda",
+             mesh=None):
     """The 'lstm' branch (enhance.py:1239-1388).  Returns (best_params,
-    config, results)."""
-    device, datasets = _start(params_data, folder_exp, device)
+    config, results).  ``mesh``: see the module docstring (dp only)."""
+    device, datasets = _start(params_data, folder_exp, device, mesh)
     timer = StageTimer()
     input_dim = int(params_data["params_stft"]["N"]) // 2 + 1
     config = LSTMConfig(
@@ -458,8 +525,8 @@ def run_lstm(params_model, params_data, folder_exp, flag_recompute=False,
                                   params_data.get("transform_y", "mag")))
 
     h = config_hash(params_model, exclude=("resume", "fsdp"))
-    dump_yaml(params_model,
-              os.path.join(folder_exp, "configs", f"params_lstm_{h}.yaml"))
+    _write_config(params_model, os.path.join(
+        folder_exp, "configs", f"params_lstm_{h}.yaml"), mesh)
     savefile = os.path.join(folder_exp, "models", f"model_lstm_{h}.npz")
     histfile = os.path.join(folder_exp, "history", f"history_lstm_{h}")
 
@@ -467,16 +534,18 @@ def run_lstm(params_model, params_data, folder_exp, flag_recompute=False,
         return masked_mse_signal_approx(lstm_forward(p, config, x), x, y,
                                         mask)
 
-    if _needs_training(params_model, savefile, flag_recompute):
-        train_data, valid_data = _train_tensors(datasets, params_data,
-                                                folder_exp)
+    need_train = _needs_training(params_model, savefile, flag_recompute)
+    _barrier(mesh)
+    if need_train:
+        train_data, valid_data = _first(mesh, lambda first: _train_tensors(
+            datasets, params_data, folder_exp))
         with timer.stage("train", sync=device.type == "cuda"):
             best_params, _ = train_model(
                 init_lstm_params(config, device=device), loss_fn, train_data,
                 valid_data, _train_config(params_model, verbose, 1e-4, 1.0),
                 savefile=savefile, histfile=histfile,
                 resume=bool(params_model.get("resume", False)),
-                device=device)
+                device=device, mesh=mesh, fsdp=_fsdp(params_model, mesh))
     else:
         best_params = _load_params(savefile)
 
@@ -486,7 +555,7 @@ def run_lstm(params_model, params_data, folder_exp, flag_recompute=False,
         params_from_numpy(best_params, device), config.mask_value,
         f"lstm_{h}", timer, device,
         _scorer(flag_score, folder_exp, compute_pesq, flag_rescore, verbose,
-                device))
+                device, mesh), mesh)
     if verbose:
         print(f"Timing:\n{timer.report()}")
     return best_params, config, {**results, "timer": timer}
@@ -495,56 +564,68 @@ def run_lstm(params_model, params_data, folder_exp, flag_recompute=False,
 def run_snmf(params_model, params_data, folder_exp, path_dicts=None,
              flag_recompute=False, flag_score=True, compute_pesq=True,
              verbose=True, splits=("valid", "test"), flag_rescore=False,
-             device="cuda"):
+             device="cuda", mesh=None):
     """The 'snmf' branch (enhance.py:750-928): the dictionary, and MU
     inference with W frozen as the enhancer.  Returns (w_noisy,
-    params_snmf, results)."""
-    device, datasets = _start(params_data, folder_exp, device)
+    params_snmf, results).  ``mesh``: rank 0 enhances, the scoring splits
+    its files over ``dp``."""
+    device, datasets = _start(params_data, folder_exp, device, mesh)
     path_dicts = _dicts_dir(folder_exp, path_dicts)
     timer = StageTimer()
     sync = device.type == "cuda"
     with timer.stage("dictionary", sync=sync):
-        w_noisy, params_snmf = _dict_from_config(
+        w_noisy, params_snmf = _dictionary(
             params_model, params_data, datasets, folder_exp, path_dicts,
-            flag_recompute, verbose, device)
+            flag_recompute, verbose, device, mesh)
     h = config_hash(params_model)
-    dump_yaml(params_model,
-              os.path.join(folder_exp, "configs", f"params_snmf_{h}.yaml"))
+    _write_config(params_model, os.path.join(
+        folder_exp, "configs", f"params_snmf_{h}.yaml"), mesh)
     histfile = os.path.join(folder_exp, "history", f"history_snmf_{h}")
     scorer = _scorer(flag_score, folder_exp, compute_pesq, flag_rescore,
-                     verbose, device)
+                     verbose, device, mesh)
     results = {}
     for split in splits:
         ds = datasets[split]
         audio_s = dataset_audio_seconds(ds)
         with timer.stage(f"load_tensors:{split}"):
-            x, y, mask = _full_tensors(datasets, split, params_data,
-                                       folder_exp)
-        with timer.stage(f"predict_irm:{split}", audio_seconds=audio_s,
-                         sync=sync, group=split):
-            x_frames = masked_seqs_to_frames(x, mask).numpy()
-            irm_frames, _ = snmf_infer_irm(
-                x_frames, w_noisy, params_snmf,
-                max_iter=int(params_model.get("infer_max_iter", 200)),
-                device=device)
-        if split == "valid":
-            y_frames = masked_seqs_to_frames(y, mask).numpy()
-            val_loss = float(np.mean((irm_frames * x_frames - y_frames) ** 2))
-            with open(histfile, "wb") as f:
-                pickle.dump({"on_epoch_end": {"val_loss": [val_loss]}}, f)
-            if verbose:
-                print(f"SNMF signal-approximation val_loss: {val_loss:.6f}")
-        # the frame stack back into the split's padded (B, T, F) layout,
-        # one row a file, for the bucketed reconstruction
-        irm = np.zeros_like(x)
-        for j in range(len(ds.x_wavfiles)):
-            ln = int(ds.fidx[j, 1] - ds.fidx[j, 0])
-            irm[j, :ln] = irm_frames[:, ds.fidx[j, 0]: ds.fidx[j, 1]].T
-        with timer.stage(f"reconstruct:{split}", audio_seconds=audio_s,
-                         sync=sync, group=split):
-            reconstruct_split(ds, irm, mask, f"snmf_{h}_{split}")
+            x, y, mask = _first(mesh, lambda first: _full_tensors(
+                datasets, split, params_data, folder_exp))
+        if _rank0(mesh):
+            _snmf_enhance(ds, split, x, y, mask, w_noisy, params_snmf,
+                          params_model, histfile, f"snmf_{h}_{split}",
+                          timer, audio_s, sync, verbose, device)
+        _barrier(mesh)
         _score_stage(results, timer, ds, f"snmf_{h}_{split}", split, scorer,
                      device)
     if verbose:
         print(f"Timing:\n{timer.report()}")
     return w_noisy, params_snmf, {**results, "timer": timer}
+
+
+def _snmf_enhance(ds, split, x, y, mask, w_noisy, params_snmf, params_model,
+                  histfile, desc, timer, audio_s, sync, verbose, device):
+    """The SNMF enhancer on one split: masks by MU inference (the valid
+    split's signal-approximation loss into the history), then the wavs."""
+    with timer.stage(f"predict_irm:{split}", audio_seconds=audio_s,
+                     sync=sync, group=split):
+        x_frames = masked_seqs_to_frames(x, mask).numpy()
+        irm_frames, _ = snmf_infer_irm(
+            x_frames, w_noisy, params_snmf,
+            max_iter=int(params_model.get("infer_max_iter", 200)),
+            device=device)
+    if split == "valid":
+        y_frames = masked_seqs_to_frames(y, mask).numpy()
+        val_loss = float(np.mean((irm_frames * x_frames - y_frames) ** 2))
+        with open(histfile, "wb") as f:
+            pickle.dump({"on_epoch_end": {"val_loss": [val_loss]}}, f)
+        if verbose:
+            print(f"SNMF signal-approximation val_loss: {val_loss:.6f}")
+    # the frame stack back into the split's padded (B, T, F) layout, one
+    # row a file, for the bucketed reconstruction
+    irm = np.zeros_like(x)
+    for j in range(len(ds.x_wavfiles)):
+        ln = int(ds.fidx[j, 1] - ds.fidx[j, 0])
+        irm[j, :ln] = irm_frames[:, ds.fidx[j, 0]: ds.fidx[j, 1]].T
+    with timer.stage(f"reconstruct:{split}", audio_seconds=audio_s,
+                     sync=sync, group=split):
+        reconstruct_split(ds, irm, mask, desc)

@@ -1,4 +1,5 @@
-"""Helpers around the models: the hash-keyed dictionary cache."""
+"""Helpers around the models: the hash-keyed dictionary cache (and, as
+submodules, ``profiling`` and ``memplan``)."""
 
 from .cache import load_snmf, save_snmf, snmf_cache_path
 

@@ -925,3 +925,82 @@ def test_scoring_engine_on_card(cuda):
                                             ests[i] / 32768.0)
         assert abs(got[i, 4] - host) <= SCORE_TOLS[4] or (
             np.isnan(host) and np.isnan(got[i, 4])), (i, got[i, 4], host)
+
+
+# two ranks of one gloo group sharing the card (parallel.mesh): a fit and
+# sparse NMF against one process on the card
+def _parallel_fit(mesh, cfg, params, data, tc):
+    from drnmf_torch.train import train_model
+
+    def loss(p, x, y, mask):
+        return masked_mse_signal_approx(drnmf.drnmf_forward(p, cfg, x), x, y,
+                                        mask)
+
+    best, hist = train_model(params, loss, data, data, tc,
+                             trainable_mask=drnmf.drnmf_trainable_mask(
+                                 cfg, params), device="cuda", mesh=mesh)
+    return best, hist.history
+
+
+def _parallel_rank(rank, cfg, params, data, tc, v, snmf_params):
+    from drnmf_torch.parallel import make_mesh, sparse_nmf_sharded
+
+    mesh = make_mesh()
+    for counts in (drnmf_scan.LAUNCHES, snmf_mu.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    fit = _parallel_fit(mesh, cfg, params, data, tc)
+    res = sparse_nmf_sharded(v, snmf_params, mesh)
+    return (fit, (res.w, res.h, res.cost), mesh.backend,
+            dict(drnmf_scan.LAUNCHES), dict(snmf_mu.LAUNCHES))
+
+
+@pytest.mark.cuda
+def test_parallel_on_card(cuda):
+    """A 2-rank gloo group on the card (``parallel.run_ranks``): data
+    parallel ``train_model`` (B1 with every layer kept and the backward
+    kernel on each rank's rows, 7 rows in batches of 4 so the last batch
+    leaves rank 1 padding only) and ``sparse_nmf_sharded`` (B4/B5 on each
+    rank's 101 or 102 frames) against one process on the card: losses rtol
+    1e-4, parameters 1e-4 / 1e-6, W, H and the costs within 1e-4 of each
+    one's largest entry; each rank launched the kernels."""
+    from drnmf_torch.ops.snmf import SNMFParams, sparse_nmf
+    from drnmf_torch.parallel import run_ranks
+    from drnmf_torch.train import TrainConfig
+
+    cfg, params, rng = _model(3, 33, 24, 3, cuda,
+                              params_untied=("log_D", "log_alph"))
+    params = {k: v.cpu().numpy() for k, v in params.items()}
+    y = rng.uniform(0.0, 1.0, (7, 40, 33)).astype(np.float32)
+    x = y + rng.uniform(0.0, 1.0, (7, 40, 33)).astype(np.float32)
+    mask = np.ones((7, 40, 1), np.float32)
+    mask[2, 30:] = 0
+    x[2, 30:] = y[2, 30:] = -1.0
+    tc = TrainConfig(epochs=2, batch_size=4, learning_rate=1e-3,
+                     clipnorm=0.02, verbose=False)
+    v = rng.uniform(0.0, 1.0, (40, 203)).astype(np.float32)
+    snmf_params = SNMFParams(r=12, cf="ed", sparsity=0.3, max_iter=15,
+                             random_seed=5)
+
+    one_best, one_hist = _parallel_fit(None, cfg, params, (x, y, mask), tc)
+    one_snmf = sparse_nmf(v, snmf_params, device="cuda")
+    ranks = run_ranks(_parallel_rank, 2,
+                      args=(cfg, params, (x, y, mask), tc, v, snmf_params),
+                      device="cuda", timeout_s=120.0, deadline_s=300.0)
+    for rank, ((best, hist), (w, h, cost), backend, scan, mu) in enumerate(
+            ranks):
+        msg = f"rank {rank}"
+        assert backend == "gloo", msg
+        assert scan["factored"] > 0 and scan["factored_backward"] > 0, msg
+        assert mu["pass1"] == mu["pass2"] == 15, msg
+        for where in ("on_batch_end", "on_epoch_end"):
+            for key, want in one_hist[where].items():
+                np.testing.assert_allclose(hist[where][key], want, rtol=1e-4,
+                                           err_msg=f"{msg} {key}")
+        for k, want in one_best.items():
+            np.testing.assert_allclose(best[k], want, rtol=1e-4, atol=1e-6,
+                                       err_msg=f"{msg} {k}")
+        for name, got, want in (("w", w, one_snmf.w), ("h", h, one_snmf.h),
+                                ("cost", cost, one_snmf.cost)):
+            err = np.abs(got - want).max() / np.abs(want).max()
+            assert err <= 1e-4, (msg, name, err)

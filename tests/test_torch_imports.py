@@ -32,13 +32,19 @@ def test_port_imports_no_jax_or_reference_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 54  # the metrics package and score_audio included
+    assert n_modules >= 59  # the parallel package and memplan included
+    # the multi-rank modules in one process
+    multi = ("drnmf_torch.parallel, drnmf_torch.parallel.mesh, "
+             "drnmf_torch.parallel.tensor_parallel, "
+             "drnmf_torch.metrics.sharded, drnmf_torch.utils.memplan")
     for name in ("drnmf_torch.streaming", "drnmf_torch.serve",
                  "drnmf_torch.cli", "drnmf_torch.__main__",
-                 "drnmf_torch.score_audio", "drnmf_torch.metrics.engine"):
+                 "drnmf_torch.score_audio", "drnmf_torch.metrics.engine",
+                 multi):
         probe = subprocess.run(
             [sys.executable, "-c",
-             f"import sys, {name}; assert '{name}' in sys.modules; "
+             f"import sys, {name}; assert all(n in sys.modules for n in "
+             f"'{name}'.split(', ')); "
              "assert not [m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'drnmf_tpu')]"],
             cwd=REPO, capture_output=True, text=True, timeout=120)
