@@ -220,13 +220,52 @@ Phases, each printing one JSON line:
               files (2 steps; the losses against one process's), the
               layout and backend line of each, and ``--tp 2`` on the LSTM
               refused.
+17. pipelined -- the pipelined recurrences at the flagship widths, ranks of
+              one gloo group sharing the card (``Mesh.shift`` stages each
+              carry through pinned host memory).  ``seqpipe``: SEQ_RANKS
+              ranks, B=64, T=1020 (noisy magnitudes, every fourth row
+              padded past an early end), G = 2 and 4 groups, frozen U
+              (B1, G launches a call on each rank) and dense U (B3);
+              ``layerpipe``: K = 5 ranks, B=10, T=32, folded and dense U
+              (no kernel).  Each against one process's ``make_scan`` on
+              the same input (KERNEL_RTOL/ATOL; bit equality logged), one
+              warm-up and SEQ_CALLS timed calls beside one process's
+              call, the bytes staged and the collectives by rank.  Then
+              the five ranks each write their FSDP block of the flagship
+              parameters (``save_checkpoint_sharded``), and this process
+              loads them whole, bit-equal.
+18. tooling -- (a) the pipeline phase's cached CLI rerun alone, with
+              ``--trace`` and with ``--dp 2 --trace``: each trace file
+              parses, holds the ``StageTimer`` stage names, and rank 0's
+              holds B1's kernel symbol (rank 0 alone predicts in a cached
+              run); seconds and bytes beside the untraced run, and the
+              three runs' launches (B1 must rise).  (b)
+              ``run_waspaa2017.main`` with the pipeline's data YAML,
+              ``--demo --demo-epochs 1 --only 2,10`` (SNMF r=1000, then
+              DR-NMF K=5 r=1000 from its dictionary, both splits scored):
+              B4, B5, B1 and the backward kernel launch, counted from 0
+              just before it; then
+              ``print_scores`` (plain, ``--per-snr``) and
+              ``plot_learning_curves`` (its text output where matplotlib
+              is absent) on that folder; ``create_taskfiles`` on a
+              CHiME2-shaped tree of links to the corpus, each list equal
+              to its links.  (c) ``ista_ed`` at 257 x 2000 x 4096, 5
+              steps, against the CPU; B1 with every layer kept, one step,
+              32 rows, on the flagship at alph 2000 (every layer active)
+              with log_Uk at -80: layers 1..K-1 each one ISTA step from
+              the layer below (KERNEL_RTOL of the peak + KERNEL_ATOL).
+              (d) where h5py is installed, the flagship written as a
+              Keras HDF5, imported with ``import_reference_weights`` and
+              4 signals enhanced, bit-equal to the original parameters;
+              where it is not, a line ``{"phase": "tooling", "h5py":
+              false}``.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after.
 
 Then a line with the kernel table (B1 to B5 and the backward kernel; the
-launches by path include ``parallel``, summed over the ranks), the
-card's ``nvidia-smi`` line, and last
+launches by path include ``parallel`` and ``pipelined``, summed over the
+ranks, and ``tooling``), the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that.
 """
 
@@ -360,6 +399,16 @@ PAR_TIMEOUT_S = 300.0
 # the CLI's --dp 2 --tp 2 run trains on the pipeline corpus's first files
 # up to about this many sequences of 500 frames: 2 steps at B=32
 PAR_TP_SEQS = 48
+# the pipelined scans (phase ``pipelined``), ranks of one gloo group sharing
+# the card: the sequence-pipelined scan over SEQ_RANKS ranks at B=64,
+# T=1020 in G = 2 and 4 groups (1 warm-up and SEQ_CALLS timed calls);
+# the layer-pipelined scan over K = 5 ranks at B=10, T=32 (T cut: a wave
+# is five plain layer steps and one host-staged shift, T G + P - 1 = 164
+# waves a call)
+SEQ_RANKS, SEQ_BATCH, SEQ_T, SEQ_GROUPS, SEQ_CALLS = 2, 64, 1020, (2, 4), 2
+LAYER_BATCH, LAYER_T = 10, 32
+# B1's kernel symbol, as a trace names the card's kernels
+B1_SYMBOL = "drnmf_scan_factored_kernel"
 
 
 def log(phase, **fields):
@@ -2998,6 +3047,453 @@ def parallel_phase(card, config, params, enhanced, clean):
     return launches
 
 
+def pipelined_rank(rank, work, which, config, dense_config):
+    """One rank of the ``pipelined`` phase: the sequence-pipelined scan
+    (``which`` "seq") or the layer-pipelined scan and the sharded
+    checkpoint ("layer"), each case against one process's ``make_scan``
+    on the same card, launches counted on the pipelined calls alone."""
+    import torch
+    from drnmf_torch.device import params_on_device
+    from drnmf_torch.models.drnmf import make_scan, step_mask_from_input
+    from drnmf_torch.parallel import (drnmf_scan_layer_pipelined,
+                                      drnmf_scan_seq_pipelined,
+                                      fsdp_shard_params, make_mesh)
+    from drnmf_torch.train import save_checkpoint_sharded
+
+    mesh = make_mesh()
+    x = torch.from_numpy(np.load(os.path.join(work, f"{which}_x.npy"))).cuda()
+    out = {"backend": mesh.backend, "ranks_per_device": mesh.ranks_per_device}
+    for kind, cfg in (("frozen_u", config), ("dense_u", dense_config)):
+        params = params_on_device(dict(np.load(os.path.join(
+            work, f"{kind}.npz"))), "cuda")
+        mask = step_mask_from_input(x, cfg.mask_value)
+        run = make_scan(params, cfg)
+        # one process's call, timed on rank 0 while the others wait
+        mesh.barrier()
+        one_ms = cuda_ms(lambda: run(x, mask), 2) if rank == 0 else None
+        mesh.barrier()
+        ref = run(x, mask)
+        if which == "seq":
+            calls = [(f"G={g}", dict(n_groups=g)) for g in SEQ_GROUPS]
+            scan = drnmf_scan_seq_pipelined
+        else:
+            calls = [("G=P", {})]
+            scan = drnmf_scan_layer_pipelined
+        for label, kw in calls:
+            reset_launches()
+            before = (mesh.staged, mesh.calls["world"], mesh.traffic["world"])
+            times = []
+            with torch.no_grad():
+                for i in range(1 + SEQ_CALLS):
+                    mesh.barrier()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got = scan(params, cfg, x, mask, mesh, **kw)
+                    torch.cuda.synchronize()
+                    if i:
+                        times.append(1e3 * (time.perf_counter() - t0))
+            err, rel, ok = compare(got, ref)
+            out[kind, label] = {
+                "launches": read_launches(), "ms": times,
+                "one_process_ms": one_ms, "max_abs_err": err,
+                "max_rel_err": rel, "within_tol": ok,
+                "bit_equal": bool(torch.equal(got, ref)),
+                "staged_bytes": mesh.staged - before[0],
+                "collectives": mesh.calls["world"] - before[1],
+                "collective_bytes": mesh.traffic["world"] - before[2]}
+            del got
+        del ref, run
+    if which == "layer":
+        # the sharded checkpoint: each rank writes its FSDP block of the
+        # flagship parameters
+        host = dict(np.load(os.path.join(work, "frozen_u.npz")))
+        shards, dims = fsdp_shard_params(host, mesh)
+        t0 = time.perf_counter()
+        import torch.distributed.checkpoint  # noqa: F401
+        import_s = time.perf_counter() - t0
+        mesh.barrier()
+        t0 = time.perf_counter()
+        save_checkpoint_sharded(os.path.join(work, "checkpoint"), shards,
+                                meta={"step": 7}, mesh=mesh, dims=dims)
+        out["checkpoint"] = {"seconds": time.perf_counter() - t0,
+                             "import_seconds": import_s, "dims": dims,
+                             "shard_bytes": sum(v.numel() * v.element_size()
+                                                for v in shards.values())}
+    return out
+
+
+def pipelined_phase(card, config, params):
+    """Phase ``pipelined`` (module docstring).  Returns the launches of the
+    sequence-pipelined runs, summed over the ranks."""
+    import shutil
+
+    import torch
+    from drnmf_torch.parallel import run_ranks
+    from drnmf_torch.train import load_checkpoint_sharded
+
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke", "pipelined")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    dense_config, dense_params = dense_flagship(config, params)
+    host = {}
+    for kind, p in (("frozen_u", params), ("dense_u", dense_params)):
+        host[kind] = {k: v.detach().cpu().numpy() for k, v in p.items()}
+        np.savez(os.path.join(work, f"{kind}.npz"), **host[kind])
+    del dense_params
+    # noisy magnitudes of B signals of T frames; every fourth row ends
+    # early (its tail holds the mask value), as a padded utterance does
+    gen = torch.Generator(device="cuda").manual_seed(2021)
+    _, noisy = synth_magnitudes(gen, SEQ_BATCH, SEQ_T * HOP / FS)
+    noisy = noisy[:, :SEQ_T].contiguous()
+    check(tuple(noisy.shape) == (SEQ_BATCH, SEQ_T, 257),
+          f"pipelined: the input is {tuple(noisy.shape)}")
+    for i in range(3, SEQ_BATCH, 4):
+        noisy[i, 600 + (53 * i) % 300:] = config.mask_value
+    layer_x = noisy[:LAYER_BATCH, :LAYER_T].clone()
+    layer_x[3, 20:] = config.mask_value
+    np.save(os.path.join(work, "seq_x.npy"), noisy.cpu().numpy())
+    np.save(os.path.join(work, "layer_x.npy"), layer_x.cpu().numpy())
+    del noisy, layer_x
+    torch.cuda.empty_cache()
+
+    groups = {}
+    for which, world in (("seq", SEQ_RANKS), ("layer", config.K_layers)):
+        t0 = time.perf_counter()
+        ranks = run_ranks(pipelined_rank, world,
+                          args=(work, which, config, dense_config),
+                          device="cuda", timeout_s=PAR_TIMEOUT_S,
+                          deadline_s=2 * PAR_TIMEOUT_S)
+        groups[which] = (ranks, time.perf_counter() - t0)
+    launches = {k: 0 for k in read_launches()}
+    for which, (ranks, group_s) in groups.items():
+        cases = {}
+        for key in ranks[0]:
+            if not isinstance(key, tuple):
+                continue
+            kind, label = key
+            kernel = {"seq": {"frozen_u": "factored", "dense_u": "dense"},
+                      "layer": {}}[which].get(kind)
+            per_rank = [out[key] for out in ranks]
+            for rank, res in enumerate(per_rank):
+                check(res["within_tol"], f"pipelined: {which} {kind} "
+                      f"{label} rank {rank} is {res['max_abs_err']} from "
+                      f"one process")
+                want_calls = 1 + SEQ_CALLS
+                n_groups = (int(label[2:]) if which == "seq" else 0)
+                check((kernel is None and only_launched(res["launches"]))
+                      or (res["launches"][kernel] == want_calls * n_groups
+                          and only_launched(res["launches"], kernel)),
+                      f"pipelined: {which} {kind} {label} rank {rank} "
+                      f"launched {res['launches']}")
+                check(res["staged_bytes"] > 0, f"pipelined: {which} staged "
+                      f"nothing through the host on rank {rank}")
+                if which == "seq":
+                    for k, c in res["launches"].items():
+                        launches[k] += c
+            cases[f"{kind} {label}"] = {
+                "ms_a_call": max(statistics.median(r["ms"])
+                                 for r in per_rank),
+                "ms_by_rank": [r["ms"] for r in per_rank],
+                "one_process_ms": per_rank[0]["one_process_ms"],
+                "max_abs_err": max(r["max_abs_err"] for r in per_rank),
+                "max_rel_err": max(r["max_rel_err"] for r in per_rank),
+                "bit_equal": [r["bit_equal"] for r in per_rank],
+                "launches_by_rank": [{k: c for k, c in r["launches"].items()
+                                      if c} for r in per_rank],
+                "staged_bytes_by_rank": [r["staged_bytes"] for r in per_rank],
+                "collectives_by_rank": [r["collectives"] for r in per_rank],
+                "collective_bytes_by_rank": [r["collective_bytes"]
+                                             for r in per_rank]}
+        log(f"pipelined_{which}", card=card, ranks=len(ranks),
+            backend=ranks[0]["backend"],
+            ranks_per_device=ranks[0]["ranks_per_device"],
+            shape=[SEQ_BATCH, SEQ_T] if which == "seq"
+            else [LAYER_BATCH, LAYER_T], calls_timed=SEQ_CALLS,
+            group_seconds=group_s, cases=cases)
+    check(launches["factored"] > 0 and launches["dense"] > 0,
+          f"pipelined: the sequence-pipelined runs launched {launches}")
+
+    # one process loads the blocks the five ranks wrote, whole (the
+    # module's import timed apart)
+    t0 = time.perf_counter()
+    import torch.distributed.checkpoint  # noqa: F401
+    import_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded, meta = load_checkpoint_sharded(os.path.join(work, "checkpoint"))
+    load_s = time.perf_counter() - t0
+    want = host["frozen_u"]
+    check(sorted(loaded) == sorted(want) and meta == {"step": 7}
+          and all(np.array_equal(loaded[k].numpy(), want[k]) for k in want),
+          "pipelined: the sharded checkpoint does not load back bit-equal")
+    ranks = groups["layer"][0]
+    files = sorted(os.listdir(os.path.join(work, "checkpoint")))
+    log("pipelined_checkpoint", ranks=len(ranks), files=files,
+        file_bytes={f: os.path.getsize(os.path.join(work, "checkpoint", f))
+                    for f in files},
+        sharded=sorted(k for k, d in ranks[0]["checkpoint"]["dims"].items()
+                       if d is not None),
+        shard_bytes_by_rank=[r["checkpoint"]["shard_bytes"] for r in ranks],
+        save_seconds=[r["checkpoint"]["seconds"] for r in ranks],
+        import_seconds_by_rank=[r["checkpoint"]["import_seconds"]
+                                for r in ranks],
+        load_seconds=load_s, load_import_seconds=import_s, bit_equal=True)
+    log("pipelined_done", phase_seconds=time.perf_counter() - t_phase,
+        launches=launches)
+    return launches
+
+
+def trace_contents(path):
+    """(names of the trace's events, its bytes) of a Chrome trace file."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    return {e.get("name") or "" for e in events}, os.path.getsize(path)
+
+
+def write_keras_h5(path, config, params):
+    """The flagship's parameters in the reference's Keras 2.0.4
+    ``save_weights`` layout (tests/test_convert.py's writer)."""
+    import h5py
+
+    rnn = "simple_deep_rnn_1"
+    layers = [("masking_1", []),
+              (rnn, [(f"{rnn}_{k}", v) for k, v in sorted(params.items())
+                     if not k.startswith("log_W_")]),
+              ("clean_est", [("clean_est/kernel:0", params["log_W_clean"])]),
+              ("noise_est", [("noise_est/kernel:0", params["log_W_noise"])])]
+    with h5py.File(path, "w") as f:
+        f.attrs["layer_names"] = np.array([n.encode() for n, _ in layers])
+        for name, weights in layers:
+            grp = f.create_group(name)
+            grp.attrs["weight_names"] = np.array([w.encode()
+                                                  for w, _ in weights])
+            for wn, arr in weights:
+                grp.create_dataset(wn, data=arr)
+
+
+def tooling_phase(card, config, params, cfg_path):
+    """Phase ``tooling`` (module docstring).  Returns the launches of its
+    paths ((a), (b) and (d)'s imported model)."""
+    import contextlib
+    import importlib.util
+    import io
+    import shutil
+
+    import torch
+    from drnmf_torch import (cli, create_taskfiles, import_reference_weights,
+                             plot_learning_curves, print_scores,
+                             run_waspaa2017)
+    from drnmf_torch.enhance import enhance_signals
+    from drnmf_torch.models.drnmf import (factored_scan_operands,
+                                          step_mask_from_input)
+    from drnmf_torch.ops import drnmf_scan, ista_ed
+    from drnmf_torch.train import load_checkpoint
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke")
+    pipe, work = (os.path.join(root, d) for d in ("pipeline", "tooling"))
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    data_yaml = os.path.join(pipe, "params_data.yaml")
+    argv = ["-c", os.path.join(pipe, "params_unfolded_snmf.yaml"), "-d",
+            data_yaml, "--exp-dir", os.path.join(pipe, "exp"), "--splits",
+            "test", "-q"]
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # (a) --trace on the pipeline phase's cached rerun: alone, traced, and
+    # traced over two ranks
+    reset_launches()
+    plain_s = timed(cli.main, argv)
+    traces = {"one": os.path.join(work, "trace"),
+              "dp2": os.path.join(work, "trace_dp2")}
+    traced_s = timed(cli.main, argv + ["--trace", traces["one"]])
+    dp_s = timed(cli.main, argv + ["--dp", "2", "--trace", traces["dp2"]])
+    # the ranks of --dp 2 count in their own processes: this one's are the
+    # untraced run's, the traced one's and rank 0's predictions
+    trace_launches = read_launches()
+    check(trace_launches["factored"] > 0,
+          f"tooling: the cached reruns launched {trace_launches}")
+    stages = {"dictionary", "load_tensors:test"}
+    rank0_stages = stages | {"predict_irm:test", "reconstruct:test"}
+    files = {}
+    for label, d in traces.items():
+        want = ["trace_rank0.json"] + (["trace_rank1.json"]
+                                       if label == "dp2" else [])
+        check(sorted(os.listdir(d)) == want,
+              f"tooling: --trace wrote {os.listdir(d)} for {label}")
+        for name in want:
+            names, size = trace_contents(os.path.join(d, name))
+            first = name == "trace_rank0.json"
+            has_b1 = any(B1_SYMBOL in n for n in names)
+            files[f"{label}/{name}"] = {
+                "bytes": size, "events": len(names),
+                "stages": sorted(n for n in names
+                                 if n in rank0_stages | {"score:test"}),
+                "b1": has_b1}
+            check((rank0_stages if first else stages) <= names,
+                  f"tooling: {label}/{name} lacks stage names")
+            # rank 0 alone predicts in a cached run
+            check(has_b1 or not first, f"tooling: {label}/{name} holds no "
+                  f"{B1_SYMBOL}")
+    log("tooling_trace", card=card, untraced_seconds=plain_s,
+        traced_seconds=traced_s, traced_dp2_seconds=dp_s, files=files,
+        launches=trace_launches)
+
+    # (b) the experiment scripts: the flagship pair of the demo grid
+    out = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        reset_launches()
+        with contextlib.redirect_stdout(out):
+            waspaa_s = timed(run_waspaa2017.main, [
+                "--data-config", data_yaml, "--demo", "--demo-epochs", "1",
+                "--only", "2,10"])
+        script_launches = read_launches()
+        setup = os.path.join(work, "data_setup_downsample1")
+        tables = {}
+        for label, args in (("plain", [setup]),
+                            ("per_snr", [setup, "--per-snr"]),
+                            ("curves", [setup, "--out",
+                                        os.path.join(work, "curves.png")])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                (plot_learning_curves if label == "curves"
+                 else print_scores).main(args)
+            tables[label] = buf.getvalue().splitlines()
+    finally:
+        os.chdir(cwd)
+    summary = out.getvalue().splitlines()
+    summary = summary[summary.index(
+        next(line for line in summary if line.startswith("== data_setup")
+             and line.endswith("results"))):]
+    check(all(script_launches[k] > 0 for k in (
+        "pass1", "pass2", "factored", "factored_backward")),
+          f"tooling: run_waspaa2017 launched {script_launches}")
+    # the table lists the grid's ten configs; the two that ran are scored
+    scored = [line.split()[:3] for line in tables["plain"][2:]
+              if line.split()[-2:] != ["-", "-"]]
+    check(len(tables["plain"]) == 12 and sorted(scored) == [
+        ["snmf", "-", "2000"], ["unfolded_snmf", "5", "2000"]],
+          f"tooling: print_scores printed {tables['plain']}")
+    matplotlib = importlib.util.find_spec("matplotlib") is not None
+    check(os.path.isfile(os.path.join(work, "curves.png")) if matplotlib
+          else "matplotlib unavailable; curve data:" in tables["curves"],
+          f"tooling: plot_learning_curves printed {tables['curves']}")
+    # create_taskfiles on a CHiME2-shaped tree of links to the corpus
+    with open(os.path.join(pipe, "params_data.yaml")) as fh:
+        import yaml
+        data = yaml.safe_load(fh)
+    chime2 = os.path.join(work, "chime2")
+    links = {}
+    for split, subset in create_taskfiles.SPLITS.items():
+        for cond, tree in create_taskfiles.CONDITIONS.items():
+            side = "x" if cond == "noisy" else "y"
+            with open(data[f"taskfile_{side}_{split}"]) as fh:
+                wavs = fh.read().split()
+            base = os.path.commonpath(wavs)
+            made = []
+            for wav in wavs:
+                link = os.path.join(chime2, tree, subset,
+                                    os.path.relpath(wav, base))
+                os.makedirs(os.path.dirname(link), exist_ok=True)
+                os.symlink(wav, link)
+                made.append(link)
+            links[f"{split}_{cond}"] = sorted(made)
+    with contextlib.redirect_stdout(io.StringIO()):
+        written = create_taskfiles.main([chime2, "--out-dir",
+                                         os.path.join(work, "taskfiles")])
+    for key, path in written.items():
+        with open(path) as fh:
+            check(fh.read().split() == links[key],
+                  f"tooling: create_taskfiles' {key} list differs")
+    log("tooling_scripts", card=card, run_waspaa2017_seconds=waspaa_s,
+        launches=script_launches, summary=summary,
+        print_scores=tables["plain"], print_scores_per_snr=tables["per_snr"],
+        matplotlib=matplotlib, plot_learning_curves=tables["curves"],
+        taskfiles={k: len(v) for k, v in links.items()})
+    launches = {k: trace_launches[k] + script_launches[k]
+                for k in trace_launches}
+
+    # (c) ISTA on the card against the CPU, and as B1's layer stack: a
+    # flagship with every layer active (alph 2000) and log_Uk at -80, so
+    # U_k's leak vanishes and layers 1..K-1 are ISTA steps
+    from drnmf_torch.models.drnmf import _effective_matrices
+    gen = torch.Generator(device="cuda").manual_seed(2022)
+    _, noisy = synth_magnitudes(gen, 4, 4096 * HOP / FS / 4)
+    frames = noisy.reshape(-1, 257)[:4096].T.contiguous()
+    _, _, w_layers, _ = _effective_matrices(params, config)
+    w = (w_layers[0] * torch.exp(params["log_alph_0"])).contiguous()
+    h = torch.rand((2000, 4096), generator=gen, device="cuda") * 0.01
+    lam1 = float(torch.exp(params["log_lam1"]))
+    alph = float(torch.exp(params["log_alph_0"]))
+    card_h = ista_ed(frames, w, h, lam1, alph, 5)
+    cpu_h = ista_ed(frames.cpu(), w.cpu(), h.cpu(), lam1, alph, 5)
+    ista_err, _, ista_ok = compare(card_h.cpu(), cpu_h)
+    check(ista_ok, f"tooling: ista_ed on the card is {ista_err} from the "
+          f"CPU")
+    ista_ms = cuda_ms(lambda: ista_ed(frames, w, h, lam1, alph, 5), 3)
+    live_config, live = live_flagship(config, params)
+    live["log_Uk"] = torch.full_like(live["log_Uk"], -80.0)
+    x = synth_magnitudes(gen, 32, 0.1)[1][:, :1].contiguous()
+    args = factored_scan_operands(live, live_config, x, step_mask_from_input(
+        x, live_config.mask_value))
+    _, h_all = drnmf_scan.drnmf_scan_factored(*args, keep_layers=True)
+    _, _, w_live, _ = _effective_matrices(live, live_config)
+    names = live_config.untied_names("log_alph")
+    steps = []
+    for k in range(1, live_config.K_layers):
+        a_k = torch.exp(live[names[k]])
+        got = h_all[k, :, 0, :32]
+        want = ista_ed(x[:, 0].T, w_live[k] * a_k, h_all[k - 1, :, 0, :32],
+                       torch.exp(live["log_lam1"]), a_k, 1)
+        err = (got - want).abs().max().item()
+        peak = want.abs().max().item()
+        steps.append({"layer": k, "max_abs_err": err, "peak": peak,
+                      "active_share": (got > 0).float().mean().item()})
+        check(err <= KERNEL_RTOL * peak + KERNEL_ATOL and peak > 0,
+              f"tooling: B1's layer {k} is {err} from an ISTA step "
+              f"(peak {peak})")
+    log("tooling_ista", card=card, shape=[257, 2000, 4096], steps=5,
+        max_abs_err_to_cpu=ista_err, ms=ista_ms, identity=steps)
+    del card_h, cpu_h, h, h_all, noisy
+
+    # (d) the Keras import, where h5py is installed
+    if importlib.util.find_spec("h5py") is None:
+        log("tooling", h5py=False)
+    else:
+        h5 = os.path.join(work, "model_unfolded_snmf_flagship.hdf5")
+        host = {k: v.detach().cpu().numpy() for k, v in params.items()}
+        write_keras_h5(h5, config, host)
+        npz = os.path.join(work, "model_unfolded_snmf_flagship.npz")
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            import_reference_weights.main([h5, "-o", npz, "-c", cfg_path])
+        imported, _ = load_checkpoint(npz)
+        signals = synth_signals(np.random.default_rng(3), 4, 4.0)
+        reset_launches()
+        got = enhance_signals(imported, config, signals, N_FFT, HOP)
+        for k, c in read_launches().items():
+            launches[k] += c
+        want = enhance_signals(params, config, signals, N_FFT, HOP)
+        check(sorted(imported) == sorted(host)
+              and all(np.array_equal(imported[k], host[k]) for k in host)
+              and all(np.array_equal(a, b) for a, b in zip(got, want)),
+              "tooling: the imported model differs from the original")
+        log("tooling_keras", h5py=True, printed=buf.getvalue().splitlines(),
+            tensors=len(imported), enhanced_bit_equal=True)
+    log("tooling_done", phase_seconds=time.perf_counter() - t_phase,
+        launches=launches)
+    return launches
+
+
 def _pcm16_pair(enhanced, clean):
     """The enhanced and clean wavs as PCM16 arrays (the native reader)."""
     from drnmf_torch.data.native_loader import read_batch_i16
@@ -3308,12 +3804,20 @@ def main():
     # 16. multi-rank paths: two ranks of one gloo group on the card
     parallel_launches = parallel_phase(card, config, params, enhanced, clean)
 
+    # 17. the pipelined scans and the sharded checkpoint
+    pipelined_launches = pipelined_phase(card, config, params)
+
+    # 18. --trace, the experiment scripts, ISTA and the Keras import
+    tooling_launches = tooling_phase(card, config, params, cfg_path)
+
     def by_path(kernel):
         paths = {"main": main_launches, "dense_main": dense_launches,
                  **multi_launches, "serve": serve_launches,
                  "paced": paced_launches, "train": train_launches,
                  "pipeline": pipeline_launches,
-                 "parallel": parallel_launches}
+                 "parallel": parallel_launches,
+                 "pipelined": pipelined_launches,
+                 "tooling": tooling_launches}
         return {path: counts[kernel] for path, counts in paths.items()
                 if counts[kernel]}
 
@@ -3359,7 +3863,9 @@ def main():
     }, {**backward_row, "launches_by_path": by_path("factored_backward")}]
     for row in snmf_rows:  # the scored pipeline's dictionary stage
         for path, counts in (("pipeline", pipeline_launches),
-                             ("parallel", parallel_launches)):
+                             ("parallel", parallel_launches),
+                             ("pipelined", pipelined_launches),
+                             ("tooling", tooling_launches)):
             row["launches_by_path"][path] = counts[
                 row["name"].replace("snmf_mu_", "")]
     check(all(row["launches"] > 0 for row in scan_rows + snmf_rows),

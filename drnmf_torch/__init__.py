@@ -13,18 +13,20 @@ to find:
 - ``models``   -- the DR-NMF unfolded-ISTA model, the LSTM baseline and the
                   SNMF enhancer
 - ``ops``      -- the hand-written CUDA kernels and their plain versions;
-                  sparse NMF (``ops.snmf``)
+                  sparse NMF (``ops.snmf``); ISTA (``ops.ista``)
 - ``train``    -- the training loop (Keras-style Adam, elastic resume),
-                  losses, ``.npz`` checkpoints, the two-stage SNMF
-                  dictionary recipe
+                  losses, ``.npz`` and sharded checkpoints, the two-stage
+                  SNMF dictionary recipe
 - ``metrics``  -- SDR, SNR, SegSNR, PESQ and STOI with the delay guard,
                   batched on the device (``metrics.engine``), and the
                   cached scoring of taskfiles
-- ``utils``    -- the hash-keyed SNMF dictionary cache; ``StageTimer``;
-                  ``memplan`` (a fit's bytes a rank)
+- ``utils``    -- the hash-keyed SNMF dictionary cache; ``StageTimer``,
+                  ``trace``; ``memplan`` (a fit's bytes a rank); the
+                  Keras HDF5 weight import (``utils.convert``)
 - ``parallel`` -- multi-rank runs on ``torch.distributed``: the process
                   group and layouts (dp, tp, FSDP), sharded sparse NMF,
-                  the tensor-parallel recurrence
+                  the tensor-parallel, sequence- and layer-pipelined
+                  recurrences
 - ``pipeline`` -- the experiment: data, dictionary, fit, masks, wavs,
                   scores
 - ``reporting`` -- score tables and learning curves from an experiment
@@ -39,6 +41,10 @@ to find:
 - ``enhance_wav`` -- command line: config + checkpoint + wavs -> wavs
 - ``serve``    -- command line: the online enhancement server over TCP
 - ``score_audio`` -- command line: score enhanced against reference wavs
+- ``run_waspaa2017``, ``print_scores``, ``plot_learning_curves``,
+  ``create_taskfiles``, ``import_reference_weights`` -- the experiment
+                  scripts of the JAX package's ``scripts/``, each as
+                  ``python -m drnmf_torch.<name>``
 
 This package never imports ``jax`` or ``drnmf_tpu``; importing it sets no
 process-global torch state.
@@ -48,4 +54,4 @@ __version__ = "0.1.0"
 
 from .streaming import MultiStreamEnhancer, StreamingEnhancer  # noqa: E402
 
-__all__ = ["MultiStreamEnhancer", "StreamingEnhancer"]
+__all__ = ["MultiStreamEnhancer", "StreamingEnhancer", "__version__"]

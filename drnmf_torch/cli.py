@@ -82,6 +82,9 @@ def main(argv=None):
     parser.add_argument("--fsdp", action="store_true",
                         help="shard parameters and Adam moments over the "
                         "dp ranks (trained models; needs --dp > 1)")
+    parser.add_argument("--trace", default=None, metavar="DIR",
+                        help="write a torch.profiler trace to "
+                        "DIR/trace_rank<r>.json (Perfetto-viewable)")
     parser.add_argument("-q", "--quiet", action="store_true")
     args = parser.parse_args(argv)
 
@@ -131,11 +134,12 @@ def main(argv=None):
                      compute_pesq=not args.no_pesq, splits=splits),
                 not args.quiet)
     if n_dp * n_tp == 1:
-        return _run(None, *run_args, device=args.device)
+        return _run(None, *run_args, device=args.device,
+                    trace_dir=args.trace)
     from .parallel import run_ranks
 
     return run_ranks(_rank, n_dp * n_tp,
-                     args=(n_dp, n_tp, args.device, run_args),
+                     args=(n_dp, n_tp, args.device, run_args, args.trace),
                      device=args.device, timeout_s=RANK_TIMEOUT_S)[0]
 
 
@@ -144,13 +148,16 @@ _RUNNERS = {"unfolded_snmf": "run_unfolded_snmf", "lstm": "run_lstm",
 
 
 def _run(mesh, model_type, params_model, params_data, folder_exp, options,
-         verbose, device="cuda"):
+         verbose, device="cuda", trace_dir=None):
+    from .utils.profiling import trace
+
     run = getattr(pipeline, _RUNNERS[model_type])
-    return run(params_model, params_data, folder_exp, verbose=verbose,
-               device=device, mesh=mesh, **options)
+    with trace(trace_dir, device, 0 if mesh is None else mesh.rank):
+        return run(params_model, params_data, folder_exp, verbose=verbose,
+                   device=device, mesh=mesh, **options)
 
 
-def _rank(rank, n_dp, n_tp, device, run_args):
+def _rank(rank, n_dp, n_tp, device, run_args, trace_dir=None):
     """One rank of a multi-rank run (started by ``run_ranks``): the layout,
     printed by rank 0, then the runner; only rank 0 speaks."""
     from .parallel import make_mesh_2d
@@ -160,7 +167,8 @@ def _rank(rank, n_dp, n_tp, device, run_args):
     verbose = run_args[-1] and rank == 0
     if verbose:
         print(f"mesh: {mesh.describe()}", flush=True)
-    return _run(mesh, *run_args[:-1], verbose)
+    return _run(mesh, *run_args[:-1], verbose, device=mesh.device,
+                trace_dir=trace_dir)
 
 
 if __name__ == "__main__":

@@ -18,7 +18,10 @@ one process a rank under ``torch.distributed``:
   reduce-scatter, broadcast over ``dp``, ``tp`` or the world) and counts
   the bytes each moves.  gloo in the card's PyTorch (2.11) takes CUDA
   tensors for every one of them and stages them through host memory
-  itself, so no collective here stages by hand.  ``Mesh.local`` is one
+  itself, so no collective stages by hand.  The ring ``shift`` of the
+  pipelined scans is point-to-point, whose documented gloo form takes CPU
+  tensors only: under gloo it stages a CUDA tensor through a pinned host
+  buffer itself (``staged`` counts those bytes).  ``Mesh.local`` is one
   process with no group, on which every collective returns its inputs.
 * :func:`shard_rows` cuts a batch into contiguous row blocks (``P("dp")``),
   a partial batch padded with zero-mask rows; :func:`replicate_params`
@@ -72,14 +75,21 @@ def init_group(rank: int, world: int, store_path: str, device="cuda",
                timeout_s: float = DEFAULT_TIMEOUT_S) -> torch.device:
     """Join rank ``rank`` of ``world`` to the default process group through
     the ``FileStore`` at ``store_path``; returns the rank's device (set as
-    the current CUDA device on the card)."""
+    the current CUDA device on the card) once every rank has joined."""
     dev = rank_device(rank, device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     store = dist.FileStore(store_path, world)
+    timeout = datetime.timedelta(seconds=timeout_s)
     dist.init_process_group(backend_for(world, dev), store=store, rank=rank,
-                            world_size=world,
-                            timeout=datetime.timedelta(seconds=timeout_s))
+                            world_size=world, timeout=timeout)
+    # gloo connects every pair of ranks inside init_process_group, and a
+    # peer that leaves (ends its group, exits) while another rank is still
+    # connecting fails that rank ("connectFullMesh failed ... Connection
+    # closed by peer"); so no rank goes on before all have connected
+    if store.add("joined", 1) == world:
+        store.set("all_joined", "1")
+    store.wait(["all_joined"], timeout)
     return dev
 
 
@@ -179,6 +189,7 @@ class Mesh:
         self._groups = {"world": None, "dp": None, "tp": None}
         self.traffic = {"dp": 0, "tp": 0, "world": 0}
         self.calls = {"dp": 0, "tp": 0, "world": 0}
+        self.staged = 0  # bytes ``shift`` copied through host memory
 
     def size(self, axis: str) -> int:
         return {"dp": self.n_dp, "tp": self.n_tp, "world": self.world}[axis]
@@ -256,6 +267,45 @@ class Mesh:
             dist.broadcast(t, src)
         return t
 
+    def shift(self, t):
+        """The ring permute of both pipelined scans (JAX's ``lax.ppermute``
+        over ``[(i, (i + 1) % P)]``): ``t`` goes to the next rank of the
+        world and the previous rank's tensor of the same shape comes back.
+        Differentiable: the cotangent goes the other way round the ring.
+
+        The backend decides how the tensor travels, by rule and not by a
+        ``try``: under NCCL (every rank owns a card) ``send``/``recv`` take
+        the CUDA tensor; under gloo a CUDA tensor goes through a pinned host
+        buffer, since gloo's documented point-to-point takes CPU tensors
+        only.  ``staged`` counts the bytes copied to and from the host for
+        that; ``traffic``/``calls`` count the bytes sent and the shifts, and
+        the group's timeout bounds each wait."""
+        if self.world == 1:
+            return t
+        if torch.is_grad_enabled() and t.requires_grad:
+            return _Shift.apply(t, self)
+        return self._shift(t, reverse=False)
+
+    def _shift(self, t, reverse):
+        step = -1 if reverse else 1
+        dst = (self.rank + step) % self.world
+        src = (self.rank - step) % self.world
+        t = t.contiguous()
+        stage = t.device.type == "cuda" and self.backend != "nccl"
+        if stage:
+            send = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            send.copy_(t)
+            recv = torch.empty_like(send, pin_memory=True)
+            self.staged += 2 * t.numel() * t.element_size()
+        else:
+            send, recv = t, torch.empty_like(t)
+        self._count("world", t)
+        for work in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, send, dst),
+                dist.P2POp(dist.irecv, recv, src)]):
+            work.wait()
+        return recv.to(t.device, non_blocking=True) if stage else recv
+
     def barrier(self):
         if self.world > 1:
             if self.backend == "nccl":
@@ -273,6 +323,20 @@ class Mesh:
             return out
         self.barrier()
         return fn(False)
+
+
+class _Shift(torch.autograd.Function):
+    """``Mesh.shift`` with its transpose: the cotangent goes back the
+    other way round the ring."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return mesh._shift(t, reverse=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._shift(g, reverse=True), None
 
 
 def make_mesh(n: Optional[int] = None, device=None) -> Mesh:

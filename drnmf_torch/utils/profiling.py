@@ -1,14 +1,49 @@
-"""Per-stage wall-clock with real-time-factor accounting (counterpart of
-``StageTimer`` in ``drnmf_tpu/utils/profiling.py``).
+"""Tracing and profiling (counterpart of ``drnmf_tpu/utils/profiling.py``):
 
-``trace`` and the rest of the JAX module wait for ROADMAP.md queue A,
-item 10."""
+* ``StageTimer`` -- named wall-clock stages with real-time-factor
+  accounting; each stage is also a ``torch.profiler.record_function``
+  range, so its name shows in a trace;
+* ``trace`` -- a ``torch.profiler`` trace around a block, written as a
+  Chrome/Perfetto JSON file; a no-op without a directory;
+* ``device_sync`` -- wait for the card's queued work (nothing on the CPU).
+
+The JAX module's ``enable_compile_cache`` (XLA's persistent compilation
+cache) has no counterpart: nothing here is compiled a call."""
 
 import contextlib
 import json
+import os
 import time
 
 import torch
+
+
+def device_sync():
+    """Wait until the work queued on the card finishes, so a timer reads
+    compute rather than launches; nothing where there is no card."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def trace(log_dir=None, device="cuda", rank: int = 0):
+    """A ``torch.profiler`` trace of the block, written to
+    ``log_dir/trace_rank{rank}.json`` (Chrome trace format: open it in
+    Perfetto or chrome://tracing); a no-op when ``log_dir`` is None.
+    Records host activity, and the card's kernels when ``device`` is the
+    card.  Yields the profiler (or None)."""
+    if log_dir is None:
+        yield None
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities,
+                                acc_events=True) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir,
+                                          f"trace_rank{rank}.json"))
 
 
 class StageTimer:
@@ -38,7 +73,8 @@ class StageTimer:
     def stage(self, name, audio_seconds=None, sync=False, group=None):
         t0 = time.perf_counter()
         try:
-            yield self
+            with torch.profiler.record_function(name):
+                yield self
         finally:
             if sync:
                 torch.cuda.synchronize()

@@ -24,6 +24,7 @@ cases and names them in a failure message.
 """
 
 import contextlib
+import dataclasses
 import functools
 
 import numpy as np
@@ -1004,3 +1005,63 @@ def test_parallel_on_card(cuda):
                                 ("cost", cost, one_snmf.cost)):
             err = np.abs(got - want).max() / np.abs(want).max()
             assert err <= 1e-4, (msg, name, err)
+
+
+# the sequence-pipelined recurrence: two ranks of one gloo group sharing the
+# card, each running its time chunk through B1 (frozen U) or B3 (dense U)
+def _seq_rank(rank, cases):
+    from drnmf_torch.parallel import drnmf_scan_seq_pipelined, make_mesh
+
+    mesh = make_mesh()
+    out = []
+    for cfg, params, x, n_groups in cases:
+        for k in drnmf_scan.LAUNCHES:
+            drnmf_scan.LAUNCHES[k] = 0
+        x = torch.from_numpy(x).cuda()
+        got = drnmf_scan_seq_pipelined(
+            params, cfg, x, drnmf.step_mask_from_input(x, cfg.mask_value),
+            mesh, n_groups=n_groups)
+        out.append((got.cpu().numpy(), dict(drnmf_scan.LAUNCHES),
+                    mesh.staged))
+    return out
+
+
+@pytest.mark.cuda
+def test_seq_pipelined_on_card(cuda):
+    """``drnmf_scan_seq_pipelined`` over 2 ranks on the card, G = 2 and 4
+    groups, frozen U (B1) and dense U (B3), a masked tail, against one
+    process's ``make_scan`` on the card at rtol 1e-4 / atol 1e-5 (the
+    kernels' tolerance: the same kernel on the same rows, the chunks
+    started from a carried state); each rank launches its kernel once a
+    group and stages the carry through host memory (gloo)."""
+    from drnmf_torch.parallel import run_ranks
+
+    cfg, params, rng = _model(3, 33, 24, 3, cuda)
+    host = {k: v.cpu().numpy() for k, v in params.items()}
+    dense_cfg = dataclasses.replace(
+        cfg, params_trainable=cfg.params_trainable + ("log_U1", "log_Uk"))
+    dense = dict(host)
+    dense["log_U1"] = host["log_U1"] - rng.uniform(
+        0.0, 0.2, host["log_U1"].shape).astype(np.float32)
+    cases, wants = [], []
+    for model_cfg, model_params, kernel in ((cfg, host, "factored"),
+                                            (dense_cfg, dense, "dense")):
+        for n_groups in (2, 4):
+            x = rng.uniform(0.0, 1.0, (8, 20, 33)).astype(np.float32)
+            x[3, 13:] = model_cfg.mask_value
+            cases.append((model_cfg, model_params, x, n_groups))
+            xc = torch.from_numpy(x).cuda()
+            run = drnmf.make_scan({k: torch.from_numpy(v).cuda()
+                                   for k, v in model_params.items()},
+                                  model_cfg)
+            wants.append((run(xc, drnmf.step_mask_from_input(
+                xc, model_cfg.mask_value)).cpu().numpy(), kernel))
+    ranks = run_ranks(_seq_rank, 2, args=(cases,), device="cuda",
+                      timeout_s=120.0, deadline_s=300.0)
+    for rank, outs in enumerate(ranks):
+        for (got, launches, staged), (want, kernel), case in zip(
+                outs, wants, cases):
+            msg = f"rank {rank} {kernel} G={case[3]}"
+            np.testing.assert_allclose(got, want, **TOL, err_msg=msg)
+            assert launches[kernel] == case[3], (msg, launches)
+            assert staged > 0, msg

@@ -1,7 +1,9 @@
 """The port stands alone: importing every drnmf_torch module loads neither
 jax nor drnmf_tpu (nor h5py, which only the HDF5 cache of the data layer
-imports, where it is used), and its entry points never fall back to the
-CPU."""
+and the Keras weight import import, where they are used, nor matplotlib,
+which only ``plot_learning_curves`` imports where it draws), the
+experiment commands answer ``--help``, and its entry points never fall back
+to the CPU."""
 
 import os
 import subprocess
@@ -21,7 +23,8 @@ names = ["drnmf_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "drnmf_tpu", "h5py"))
+             if m.split(".")[0] in ("jax", "jaxlib", "drnmf_tpu", "h5py",
+                                    "matplotlib"))
 print(len(names), bad)
 assert not bad, bad
 """
@@ -32,15 +35,22 @@ def test_port_imports_no_jax_or_reference_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 59  # the parallel package and memplan included
+    assert n_modules >= 68  # the pipelined scans and the commands included
     # the multi-rank modules in one process
     multi = ("drnmf_torch.parallel, drnmf_torch.parallel.mesh, "
              "drnmf_torch.parallel.tensor_parallel, "
+             "drnmf_torch.parallel.seqpipe, drnmf_torch.parallel.layerpipe, "
              "drnmf_torch.metrics.sharded, drnmf_torch.utils.memplan")
+    commands = ("run_waspaa2017", "print_scores", "plot_learning_curves",
+               "create_taskfiles", "import_reference_weights")
+    tools = ", ".join(["drnmf_torch.utils.convert", "drnmf_torch.ops.ista",
+                       "drnmf_torch.utils.profiling",
+                       "drnmf_torch.train.checkpoint"]
+                      + [f"drnmf_torch.{d}" for d in commands])
     for name in ("drnmf_torch.streaming", "drnmf_torch.serve",
                  "drnmf_torch.cli", "drnmf_torch.__main__",
                  "drnmf_torch.score_audio", "drnmf_torch.metrics.engine",
-                 multi):
+                 multi, tools):
         probe = subprocess.run(
             [sys.executable, "-c",
              f"import sys, {name}; assert all(n in sys.modules for n in "
@@ -49,6 +59,22 @@ def test_port_imports_no_jax_or_reference_package():
              "('jax', 'jaxlib', 'drnmf_tpu')]"],
             cwd=REPO, capture_output=True, text=True, timeout=120)
         assert probe.returncode == 0, name + probe.stdout + probe.stderr
+    # each command's --help, as ``python -m drnmf_torch.<name> --help`` runs
+    # it, in one process
+    helped = subprocess.run(
+        [sys.executable, "-c", "import importlib, runpy, sys\n"
+         f"for name in {commands!r}:\n"
+         "    sys.argv = [name, '--help']\n"
+         "    try:\n"
+         "        runpy.run_module('drnmf_torch.' + name,\n"
+         "                         run_name='__main__')\n"
+         "    except SystemExit as e:\n"
+         "        assert e.code == 0, name\n"
+         "    print('helped', name)\n"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert helped.returncode == 0, helped.stdout + helped.stderr
+    assert helped.stdout.count("usage:") == len(commands), helped.stdout
+    assert all(f"helped {name}" in helped.stdout for name in commands)
 
 
 def _call_entry_point(name, tmp_path):
