@@ -1,0 +1,17 @@
+"""B5's share of its roofline in the SNMF enhancer: ``yardstick.bounds.
+snmf_bounds``' pass2 at m = F, 2r and n = each call's frames, for each MU
+iteration, over B5's device time in the traced window."""
+
+from benchmark.metrics._kernels import mu_split
+
+
+# snmf_mu.cu: the products, B5's epilogue (enum Epi's EPI_DIV, 3) and
+# the fixed-order sums
+PRODUCT, B5_EPILOGUE = "mu_gemm<", "3"
+SUMS, B5_SUM = ("sum_slices", "sum_partials"), "sum_partials"
+
+
+def read(ctx):
+    _, b5 = mu_split(ctx["trace"]["device"], PRODUCT, B5_EPILOGUE,
+                     SUMS, B5_SUM)
+    return 100.0 * ctx["counters"]["b5_bound_s"] / b5 if b5 > 0 else None
