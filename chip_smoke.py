@@ -3327,8 +3327,14 @@ def tooling_phase(card, config, params, cfg_path):
     for label, d in traces.items():
         want = ["trace_rank0.json"] + (["trace_rank1.json"]
                                        if label == "dp2" else [])
-        check(sorted(os.listdir(d)) == want,
+        tallies = [n.replace("trace_", "spans_") for n in want]
+        check(sorted(os.listdir(d)) == sorted(want + tallies),
               f"tooling: --trace wrote {os.listdir(d)} for {label}")
+        for name in tallies:
+            with open(os.path.join(d, name)) as fh:
+                spans = set(json.load(fh)["spans"])
+            check(stages <= spans, f"tooling: {label}/{name} lacks stage "
+                  f"spans")
         for name in want:
             names, size = trace_contents(os.path.join(d, name))
             first = name == "trace_rank0.json"

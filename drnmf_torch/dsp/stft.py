@@ -21,6 +21,7 @@ signal are the reference's frames, so a batch can share one padded length.
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .windows import sqrt_hann_periodic
 
 
@@ -65,10 +66,12 @@ def stft_frames(x: torch.Tensor, window: torch.Tensor, n_fft: int,
 
     The caller applies reference-style padding (see :func:`pad_signal`);
     trailing samples that do not fill a frame are dropped.  Output is
-    complex64, frames along the second-to-last axis."""
-    frames = x.to(torch.float32).unfold(-1, n_fft, hop)
-    frames = frames * window.to(torch.float32)
-    return torch.fft.rfft(frames, dim=-1).to(torch.complex64)
+    complex64, frames along the second-to-last axis.  Traced, the span
+    ``dsp.stft``."""
+    with span("dsp.stft"):
+        frames = x.to(torch.float32).unfold(-1, n_fft, hop)
+        frames = frames * window.to(torch.float32)
+        return torch.fft.rfft(frames, dim=-1).to(torch.complex64)
 
 
 def pad_signal(x: torch.Tensor, n_fft: int, hop: int,
@@ -125,11 +128,13 @@ def istft_frames(spec: torch.Tensor, window: torch.Tensor, n_fft: int,
 
     (..., n_frames, F) -> (..., n_fft + hop*(n_frames-1)).
     The synthesis window is ``window * 2/(n_fft/hop)`` (util.py:143).
+    Traced, the span ``dsp.istft``.
     """
-    scale = 2.0 / (float(n_fft) / float(hop))
-    syn = window.to(torch.float32) * float(np.float32(scale))
-    frames = torch.fft.irfft(spec, n=n_fft, dim=-1).to(torch.float32)
-    return overlap_add(frames * syn, hop)
+    with span("dsp.istft"):
+        scale = 2.0 / (float(n_fft) / float(hop))
+        syn = window.to(torch.float32) * float(np.float32(scale))
+        frames = torch.fft.irfft(spec, n=n_fft, dim=-1).to(torch.float32)
+        return overlap_add(frames * syn, hop)
 
 
 def istft(spec: torch.Tensor, n_fft: int = 512, hop: int = 128,

@@ -13,9 +13,11 @@ import numpy as np
 import torch
 
 from .device import params_on_device, resolve_device
-from .dsp.stft import bucket_total, istft_frames, stft_frames
+from .dsp.stft import (bucket_total, istft_frames, n_frames_for_length,
+                       stft_frames)
 from .dsp.windows import sqrt_hann_periodic
 from .models.drnmf import DRNMFConfig, drnmf_forward
+from .utils.profiling import count, span
 
 
 def stage_clock(stages: dict, device):
@@ -84,24 +86,43 @@ def enhance_signals(params, config: DRNMFConfig, signals, n_fft: int = 512,
     ``scan_fn`` and ``lap``: see :func:`make_enhancer`; ``lap`` is also
     called after the stages ``pad_and_copy_in`` (the first batch's includes
     moving ``params``) and ``copy_out_and_trim``, once per batch.
+
+    Traced (``utils.profiling``), the call is the span ``enhance.call``
+    over the spans ``enhance.pad``, ``enhance.copy_in``,
+    ``enhance.copy_out`` and ``enhance.trim`` of each batch, and the
+    counters ``enhance.frames_run`` (rows x the padded batch's STFT
+    frames) and ``enhance.frames_signal`` (the signals' own frames) give
+    the share of the recurrence's frames that is padding.
     """
-    device = resolve_device(device)
-    lap = lap or _no_lap
-    params = params_on_device(params, device)
-    enhance = make_enhancer(config, n_fft, hop, device, scan_fn, lap)
-    out = []
-    for start in range(0, len(signals), batch_size):
-        chunk = signals[start : start + batch_size]
-        # shared sample-bucket grid (a zero tail enhances to zeros)
-        total = max(bucket_total(len(s), n_fft, hop) for s in chunk)
-        batch_np = np.zeros((len(chunk), total), np.float32)
-        for row, s in enumerate(chunk):
-            x = np.asarray(s, np.float32)
-            batch_np[row, n_fft : n_fft + x.shape[-1]] = x
-        wav = torch.from_numpy(batch_np).to(device)
-        lap("pad_and_copy_in")
-        y = enhance(params, wav).cpu().numpy()
-        for row, s in zip(y, chunk):
-            out.append(row[n_fft:-n_fft][: len(s)])
-        lap("copy_out_and_trim")
-    return out
+    with span("enhance.call", signals=len(signals)):
+        device = resolve_device(device)
+        lap = lap or _no_lap
+        params = params_on_device(params, device)
+        enhance = make_enhancer(config, n_fft, hop, device, scan_fn, lap)
+        out = []
+        for start in range(0, len(signals), batch_size):
+            chunk = signals[start : start + batch_size]
+            with span("enhance.pad"):
+                # shared sample-bucket grid (a zero tail enhances to zeros)
+                total = max(bucket_total(len(s), n_fft, hop) for s in chunk)
+                batch_np = np.zeros((len(chunk), total), np.float32)
+                signal_frames = 0
+                for row, s in enumerate(chunk):
+                    x = np.asarray(s, np.float32)
+                    batch_np[row, n_fft : n_fft + x.shape[-1]] = x
+                    signal_frames += n_frames_for_length(x.shape[-1], n_fft,
+                                                         hop)
+            count("enhance.frames_run",
+                  len(chunk) * (1 + (total - n_fft) // hop))
+            count("enhance.frames_signal", signal_frames)
+            with span("enhance.copy_in"):
+                wav = torch.from_numpy(batch_np).to(device)
+            lap("pad_and_copy_in")
+            y = enhance(params, wav)
+            with span("enhance.copy_out"):
+                y = y.cpu().numpy()
+            with span("enhance.trim"):
+                for row, s in zip(y, chunk):
+                    out.append(row[n_fft:-n_fft][: len(s)])
+            lap("copy_out_and_trim")
+        return out

@@ -37,6 +37,7 @@ from ..ops.drnmf_scan import (drnmf_scan_factored,
                               drnmf_scan_factored_backward,
                               drnmf_scan_factored_backward_reference,
                               drnmf_scan_factored_reference)
+from ..utils.profiling import span
 
 # room kept free past the residuals: the weight-gradient products'
 # operands (r_k and x batch-innermost, (F, T·Bp) each: 16 MB at the
@@ -60,8 +61,11 @@ def residual_budget(device) -> int:
 
 
 def check_residual_budget(bsz, t_len, hidden_dim, k_layers, device):
+    """Raise where the residuals do not fit; traced, the span
+    ``grad.residual_check`` (the free-memory read)."""
     need = batched_grad_residual_bytes(bsz, t_len, hidden_dim, k_layers)
-    budget = residual_budget(device)
+    with span("grad.residual_check"):
+        budget = residual_budget(device)
     if need > budget:
         raise RuntimeError(
             f"training the recurrence keeps {need} bytes of layer and delta "
@@ -72,30 +76,32 @@ def check_residual_budget(bsz, t_len, hidden_dim, k_layers, device):
 
 def _weight_grads(ctx, x, h_all, delta, p_all, dkt_stack, dka_stack):
     """d_x, d_dkt, d_dka, d_b from the kernels' outputs, each one product
-    over T·Bp (the padded columns hold zero deltas and p)."""
-    k_layers, n2r, t_len, bp = h_all.shape
-    bsz, _, f = x.shape
-    tbp = t_len * bp
-    xf = x.new_zeros((f, t_len, bp))
-    xf[:, :, :bsz] = x.permute(2, 1, 0)
-    xf = xf.reshape(f, tbp)
-    d = delta.reshape(k_layers, n2r, tbp)
-    h = h_all.reshape(k_layers, n2r, tbp)
-    p = p_all.reshape(k_layers - 1, f, tbp)
-    d_dka = torch.empty_like(dka_stack)
-    torch.matmul(xf, d[0].T, out=d_dka[0])
-    d_dkt = torch.empty_like(dkt_stack) if k_layers > 1 else None
-    for k in range(1, k_layers):
-        r_k = torch.addmm(xf, dkt_stack[k - 1].T, h[k - 1], alpha=-1.0)
-        torch.matmul(r_k, d[k].T, out=d_dka[k])
-        torch.matmul(h[k - 1], p[k - 1].T, out=d_dkt[k - 1])
-        d_dkt[k - 1].neg_()
-    d_b = d.sum(dim=2)
-    d_x = None
-    if ctx.needs_input_grad[1]:
-        dxf = (dka_stack[0] @ d[0] + p.sum(dim=0)).reshape(f, t_len, bp)
-        d_x = dxf[:, :, :bsz].permute(2, 1, 0).contiguous()
-    return d_x, d_dkt, d_dka, d_b
+    over T·Bp (the padded columns hold zero deltas and p); traced, the span
+    ``grad.weight_grads``."""
+    with span("grad.weight_grads"):
+        k_layers, n2r, t_len, bp = h_all.shape
+        bsz, _, f = x.shape
+        tbp = t_len * bp
+        xf = x.new_zeros((f, t_len, bp))
+        xf[:, :, :bsz] = x.permute(2, 1, 0)
+        xf = xf.reshape(f, tbp)
+        d = delta.reshape(k_layers, n2r, tbp)
+        h = h_all.reshape(k_layers, n2r, tbp)
+        p = p_all.reshape(k_layers - 1, f, tbp)
+        d_dka = torch.empty_like(dka_stack)
+        torch.matmul(xf, d[0].T, out=d_dka[0])
+        d_dkt = torch.empty_like(dkt_stack) if k_layers > 1 else None
+        for k in range(1, k_layers):
+            r_k = torch.addmm(xf, dkt_stack[k - 1].T, h[k - 1], alpha=-1.0)
+            torch.matmul(r_k, d[k].T, out=d_dka[k])
+            torch.matmul(h[k - 1], p[k - 1].T, out=d_dkt[k - 1])
+            d_dkt[k - 1].neg_()
+        d_b = d.sum(dim=2)
+        d_x = None
+        if ctx.needs_input_grad[1]:
+            dxf = (dka_stack[0] @ d[0] + p.sum(dim=0)).reshape(f, t_len, bp)
+            d_x = dxf[:, :, :bsz].permute(2, 1, 0).contiguous()
+        return d_x, d_dkt, d_dka, d_b
 
 
 class _ScanFactoredTrain(torch.autograd.Function):

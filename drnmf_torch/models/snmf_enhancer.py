@@ -14,6 +14,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.snmf import SNMFParams, sparse_nmf_chunked
+from ..utils.profiling import span
 
 
 def snmf_infer_irm(x_frames, w_noisy, params_snmf: SNMFParams,
@@ -26,19 +27,26 @@ def snmf_infer_irm(x_frames, w_noisy, params_snmf: SNMFParams,
     w_noisy:  (F, 2r) = [W_clean, W_noise].
     ``generator``: for the random initial H (see ``ops.snmf.sparse_nmf``).
     Returns numpy ``(irm (F, n_frames), h (2r, n_frames))``.
+    Traced, the call is the span ``snmf.call`` over ``snmf.h_to_host``
+    (in ``ops.snmf.sparse_nmf``), ``snmf.h_to_device`` and
+    ``snmf.mask_to_host``: the host round trip of ``h`` and the mask.
     """
-    device = resolve_device(device)
-    w_noisy = np.asarray(w_noisy, np.float32)
-    r2 = w_noisy.shape[1]
-    r = r2 // 2
-    infer_params = replace(params_snmf, r=r2, init_w=w_noisy,
-                           w_update_ind=np.zeros(r2, bool), conv_eps=0.0,
-                           max_iter=max_iter)
-    res = sparse_nmf_chunked(x_frames, infer_params, generator=generator,
-                             frame_chunk=frame_chunk, device=device)
-    h = torch.from_numpy(res.h).to(device)
-    w = torch.from_numpy(w_noisy).to(device)
-    clean_est = w[:, :r] @ h[:r]
-    noise_est = w[:, r:] @ h[r:]
-    irm = clean_est / (1e-9 + clean_est + noise_est)
-    return irm.cpu().numpy(), res.h
+    with span("snmf.call", frames=int(x_frames.shape[1])):
+        device = resolve_device(device)
+        w_noisy = np.asarray(w_noisy, np.float32)
+        r2 = w_noisy.shape[1]
+        r = r2 // 2
+        infer_params = replace(params_snmf, r=r2, init_w=w_noisy,
+                               w_update_ind=np.zeros(r2, bool), conv_eps=0.0,
+                               max_iter=max_iter)
+        res = sparse_nmf_chunked(x_frames, infer_params, generator=generator,
+                                 frame_chunk=frame_chunk, device=device)
+        with span("snmf.h_to_device"):
+            h = torch.from_numpy(res.h).to(device)
+        w = torch.from_numpy(w_noisy).to(device)
+        clean_est = w[:, :r] @ h[:r]
+        noise_est = w[:, r:] @ h[r:]
+        irm = clean_est / (1e-9 + clean_est + noise_est)
+        with span("snmf.mask_to_host"):
+            irm = irm.cpu().numpy()
+        return irm, res.h

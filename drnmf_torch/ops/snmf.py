@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.profiling import span
 from .snmf_mu import FLR, converged, history, sparse_nmf_ed
 
 
@@ -239,7 +240,8 @@ def sparse_nmf(v, params: SNMFParams, generator=None,
     initial values (default: seeded with ``params.random_seed``).
     ``device_output=True`` leaves W and H as tensors on the device (H is
     (r, n): at corpus scale fetching it costs more than the solve); else
-    they come back as numpy."""
+    they come back as numpy, H's fetch traced as the span
+    ``snmf.h_to_host``."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(
@@ -252,8 +254,10 @@ def sparse_nmf(v, params: SNMFParams, generator=None,
     divs, costs = _to_numpy(divs), _to_numpy(costs)
     if device_output:
         return SNMFResult(w=w, h=h, div=divs, cost=costs, n_iter=n_iter)
-    return SNMFResult(w=_to_numpy(w), h=_to_numpy(h), div=divs, cost=costs,
-                      n_iter=n_iter)
+    w = _to_numpy(w)
+    with span("snmf.h_to_host"):
+        h = _to_numpy(h)
+    return SNMFResult(w=w, h=h, div=divs, cost=costs, n_iter=n_iter)
 
 
 def default_frame_chunk(r: int, max_frames_at_r200: int = 700_000) -> int:

@@ -78,6 +78,7 @@ Not ported: XLA's devices (buffer donation, ``make_epoch_chunk``,
 ``DRNMF_EPOCH_FUSE*``).
 """
 
+import itertools
 import os
 import pickle
 import time
@@ -91,6 +92,7 @@ from ..device import free_bytes, resolve_device
 from ..models.drnmf import BatchRows
 from ..parallel.mesh import (Mesh, fsdp_shard_params, pad_block,
                              replicate_params, shard_batch, shard_rows)
+from ..utils.profiling import span
 from .checkpoint import save_checkpoint
 from .history import LossHistory
 from .losses import _step_weights
@@ -282,24 +284,30 @@ def make_train_step(loss_fn: Callable, optimizer: KerasAdam,
     read).  With a ``layout`` (:class:`_Layout`, whose optimizer
     ``optimizer`` is) the parameters come from it, the loss is multiplied
     by ``scale`` (this rank's share of the global batch) and the gradients
-    and loss are reduced over the ranks before the update."""
+    and loss are reduced over the ranks before the update.  Traced
+    (``utils.profiling``), a step is the span ``train.step``, the step's
+    number in its args (inside a pipeline stage the call id is the
+    stage's)."""
+
+    steps = itertools.count()
 
     def step(params, x, y, mask, generator=None, scale=None):
-        optimizer.zero_grad()
-        if layout is not None:
-            params = layout.forward_params()
-        if with_rng:
-            loss = loss_fn(params, x, y, mask, generator)
-        else:
-            loss = loss_fn(params, x, y, mask)
-        if scale is not None:
-            loss = loss * scale
-        loss.backward()
-        loss, grads = loss.detach(), None
-        if layout is not None:
-            grads, loss = layout.reduce_grads(loss)
-        optimizer.step(grads)
-        return loss
+        with span("train.step", step=next(steps)):
+            optimizer.zero_grad()
+            if layout is not None:
+                params = layout.forward_params()
+            if with_rng:
+                loss = loss_fn(params, x, y, mask, generator)
+            else:
+                loss = loss_fn(params, x, y, mask)
+            if scale is not None:
+                loss = loss * scale
+            loss.backward()
+            loss, grads = loss.detach(), None
+            if layout is not None:
+                grads, loss = layout.reduce_grads(loss)
+            optimizer.step(grads)
+            return loss
 
     return step
 

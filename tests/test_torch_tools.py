@@ -81,12 +81,18 @@ def _trace_names(path):
     return {e.get("name") for e in events}
 
 
+def _span_names(path):
+    with open(path) as fh:
+        return set(json.load(fh)["spans"])
+
+
 def test_trace_and_cli_trace(tmp_path, monkeypatch):
     """``trace(None)`` does nothing; ``trace(dir)`` writes
-    ``trace_rank0.json`` with the block's ``StageTimer`` ranges;
-    ``device_sync`` on the CPU returns.  A tiny ``--device cpu`` CLI run
-    with ``--trace`` writes one Chrome trace holding the pipeline's stage
-    names, and ``--dp 2 --trace`` one a rank, each holding its stages."""
+    ``trace_rank0.json`` with the block's ``StageTimer`` ranges and
+    ``spans_rank0.json`` with their spans; ``device_sync`` on the CPU
+    returns.  A tiny ``--device cpu`` CLI run with ``--trace`` writes one
+    Chrome trace and one tally holding the pipeline's stage names, and
+    ``--dp 2 --trace`` one of each a rank, each holding its stages."""
     from drnmf_torch import cli
     from drnmf_torch.utils import StageTimer, device_sync, trace
 
@@ -98,9 +104,12 @@ def test_trace_and_cli_trace(tmp_path, monkeypatch):
         with timer.stage("outer"):
             with timer.stage("inner"):
                 torch.ones(4) @ torch.ones(4)
-    assert os.listdir(tmp_path / "block") == ["trace_rank0.json"]
+    assert sorted(os.listdir(tmp_path / "block")) == ["spans_rank0.json",
+                                                      "trace_rank0.json"]
     assert {"outer", "inner"} <= _trace_names(
         tmp_path / "block" / "trace_rank0.json")
+    assert {"outer", "inner"} <= _span_names(
+        tmp_path / "block" / "spans_rank0.json")
 
     paths = _corpus(tmp_path)
 
@@ -110,16 +119,23 @@ def test_trace_and_cli_trace(tmp_path, monkeypatch):
                   "--no-score", "--device", "cpu", "-q", *extra])
 
     run("one", "--trace", str(tmp_path / "t1"))
-    assert os.listdir(tmp_path / "t1") == ["trace_rank0.json"]
+    assert sorted(os.listdir(tmp_path / "t1")) == ["spans_rank0.json",
+                                                   "trace_rank0.json"]
+    stages = {"dictionary", "train", "load_tensors:valid",
+              "predict_irm:valid", "reconstruct:valid"}
     names = _trace_names(tmp_path / "t1" / "trace_rank0.json")
-    assert {"dictionary", "train", "load_tensors:valid",
-            "predict_irm:valid", "reconstruct:valid"} <= names, names
+    assert stages <= names, names
+    spans = _span_names(tmp_path / "t1" / "spans_rank0.json")
+    assert stages | {"train.step"} <= spans, spans
     run("two", "--dp", "2", "--trace", str(tmp_path / "t2"))
-    assert sorted(os.listdir(tmp_path / "t2")) == ["trace_rank0.json",
-                                                   "trace_rank1.json"]
+    assert sorted(os.listdir(tmp_path / "t2")) == [
+        "spans_rank0.json", "spans_rank1.json", "trace_rank0.json",
+        "trace_rank1.json"]
     for rank in (0, 1):
         names = _trace_names(tmp_path / "t2" / f"trace_rank{rank}.json")
         assert {"dictionary", "train"} <= names, (rank, names)
+        spans = _span_names(tmp_path / "t2" / f"spans_rank{rank}.json")
+        assert {"dictionary", "train"} <= spans, (rank, spans)
 
 
 # ---------------------------------------------------------------------------
