@@ -182,16 +182,26 @@ Phases, each printing one JSON line:
               two), 10 iterations a chunk; B4/B5 launch once per iteration;
               the dictionary then initialises the flagship model, which
               enhances 4 signals through B1.
-13. snmf_infer -- ``snmf_infer_irm`` (W frozen, 200 iterations) on 16 x 8 s.
+13. snmf_infer -- ``snmf_infer_irm`` (W frozen, 200 iterations, the
+              frozen route: one B4 and one B5 launch an iteration) on
+              16 x 8 s; the frozen route's passes (``snmf_mu_frozen_*``:
+              W^T v, lam, the H update, B5 and the lam it leaves) against
+              their plain versions at its frame count and dictionary.
 14. snmf_parity -- ``sparse_nmf_ed`` with B4/B5 against the same solver on
-              the plain passes, 10 iterations at 257 x 16,080 x 2000.
+              the plain passes, 10 iterations at 257 x 16,080 x 2000: half
+              of W frozen (the general route), then all of it (the frozen
+              route).
 15. snmf_times -- B4, B5, their plain versions and the bare cuBLAS products
               at bench.py's SNMF shape (257 x 140,000, 2r=2000): ms, useful
               TFLOP/s, the bound (one TF32 tensor-core pass or the bytes)
               beside what three TF32 passes and the f32 CUDA cores could
               reach, a bit-equal repeat of both, their times at the recipe's
               unpadded 139,695 frames, one iteration split by kernel, and the
-              end-to-end ``sparse_nmf`` iteration rate.
+              end-to-end ``sparse_nmf`` iteration rate; the frozen route's
+              passes against their plain versions, each timed beside its
+              bound, and one iteration of it (W^T v and lam carried over)
+              beside the general route's and beside its bound, split by
+              kernel.
 16. parallel -- the multi-rank paths (``drnmf_torch.parallel``): two ranks
               of one gloo group sharing the card (``run_ranks``; NCCL
               refuses two ranks of one communicator on one device), every
@@ -802,9 +812,12 @@ def close_to(got, want):
 
 
 def snmf_bounds(m, r, n):
-    """{pass: bounds} of one B4 and one B5 call on these shapes.  The work
-    is 6 (B4) or 1 (B5) products of 2*m*r*n flops, and each input read once
-    and each output written once at the HBM rate.  ``bound_ms``/``bound_by``:
+    """{pass: bounds} of one B4 and one B5 call on these shapes, on the
+    general route (``pass1``, ``pass2``) and on the frozen one
+    (``frozen_pass1``, ``frozen_pass2``; ``frozen_iter`` for both).  The
+    work is 6 (B4) or 1 (B5, and each frozen pass) products of 2*m*r*n
+    flops, and each input read once and each output written once at the
+    HBM rate.  ``bound_ms``/``bound_by``:
     the least time the card could take, the larger of one dense TF32
     tensor-core pass and the bytes; ``bound_3xtf32_ms``: the same with the
     three TF32 passes a term that the kernels' f32-class accuracy costs;
@@ -812,10 +825,18 @@ def snmf_bounds(m, r, n):
     bound the kernels had before they ran on the tensor cores."""
     inputs = 4 * (m * n + r * n + m * r)  # v, h, w
     out = {}
-    for name, products, outputs in (("pass1", 6, 4 * (r * n + 2 * m * r + 1)),
-                                    ("pass2", 1, 4)):
+    for name, products, nbytes in (
+            ("pass1", 6, inputs + 4 * (r * n + 2 * m * r + 1)),
+            ("pass2", 1, inputs + 4),
+            # h, W^T v, lam and W in; h' and a sum out
+            ("frozen_pass1", 1, 4 * (3 * r * n + m * n + m * r + 1)),
+            # h, v and W in; lam and a sum out
+            ("frozen_pass2", 1, 4 * (r * n + 2 * m * n + m * r + 1)),
+            # one iteration of the frozen route, B4's W^T lam and B5's
+            # W h': h, W^T v, lam, v and W in; h', lam and two sums out
+            ("frozen_iter", 2, 4 * (3 * r * n + 3 * m * n + m * r + 2))):
         flops = products * 2 * m * r * n
-        t_bytes = (inputs + outputs) / PEAK_BYTES_PER_S
+        t_bytes = nbytes / PEAK_BYTES_PER_S
         t_ops = flops / PEAK_TF32_FLOPS
         out[name] = {
             "flops": flops,
@@ -861,12 +882,43 @@ def snmf_errors(v, h, w, sparsity):
     return errs
 
 
+def snmf_frozen_errors(v, h, w, sparsity):
+    """The frozen route's passes against their plain versions, each side on
+    a state of its own: the state as ``snmf_mu_frozen_init`` fills it
+    (``numer`` = W^T v, ``lam``), B4 (``h_new``, ``sp_sum``), then B5 on
+    the kernel's h' on both sides (``div``, and ``lam_next``, the lam it
+    leaves): {output: (max abs err, max abs err / max |plain|)}, and
+    whether the padding of the kernel's lam holds flr.  These launches do
+    not count as the main path's."""
+    import torch
+    from drnmf_torch.ops import snmf_mu
+
+    n = v.shape[1]
+    state, plain = snmf_mu.FrozenW(), snmf_mu.FrozenW()
+    snmf_mu.snmf_mu_frozen_init(v, h, w, state)
+    snmf_mu.snmf_mu_frozen_init_reference(v, h, w, plain)
+    pairs = [("numer", state.numer, plain.numer),
+             ("lam", state.lam[:, :n].clone(), plain.lam)]
+    h_new, sp_sum = snmf_mu.snmf_mu_frozen_pass1(h, sparsity, state)
+    pairs += zip(("h_new", "sp_sum"), (h_new, sp_sum),
+                 snmf_mu.snmf_mu_frozen_pass1_reference(h, sparsity, plain))
+    pairs.append(("div", snmf_mu.snmf_mu_frozen_pass2(v, h_new, state),
+                  snmf_mu.snmf_mu_frozen_pass2_reference(v, h_new, plain)))
+    pairs.append(("lam_next", state.lam[:, :n], plain.lam))
+    torch.cuda.synchronize()
+    errs = {}
+    for name, o, rf in pairs:
+        diff = (o - rf).abs().max().item()
+        errs[name] = (diff, diff / max(rf.abs().max().item(), 1e-30))
+    return errs, bool((state.lam[:, n:] == snmf_mu.FLR).all())
+
+
 def snmf_kernel_phase():
     """B4/B5 against their plain versions at shapes that cut every tile (n
     below one 128-row tile; n = 0, 1, 2, 3 mod 4, which moves the rows'
     alignment; m = 8, 257, 264 against the 88-column tiles; r = 2000 and r
     not a multiple of 8; sparsity 0), and one whole MU iteration with half
-    of W frozen."""
+    of W frozen; the frozen route's passes at the same shapes."""
     import torch
     from drnmf_torch.ops import snmf_mu
 
@@ -877,6 +929,8 @@ def snmf_kernel_phase():
         case = f"m{m}_r{r}_n{n}_sp{sparsity}"
         v, h, w = snmf_operands(rng, m, r, n)
         errs = snmf_errors(v, h, w, sparsity)
+        frozen_errs, pad_ok = snmf_frozen_errors(v, h, w, sparsity)
+        errs.update({f"frozen_{k}": e for k, e in frozen_errs.items()})
         w_mask = torch.arange(r, device="cuda") < r // 2
         it = snmf_mu.mu_ed_iteration(v, h, w, sparsity, w_mask)
         plain = snmf_mu.mu_ed_iteration(v, h, w, sparsity, w_mask,
@@ -885,10 +939,12 @@ def snmf_kernel_phase():
                                it, plain):
             diff = (o - rf).abs().max().item()
             errs[name] = (diff, diff / rf.abs().max().item())
-        if not sparsity:
-            errs.pop("sp_sum")  # zero on both sides
-        ok = all(rel <= SNMF_RTOL for _, rel in errs.values())
+        if not sparsity:  # zero on both sides
+            errs.pop("sp_sum")
+            errs.pop("frozen_sp_sum")
+        ok = pad_ok and all(rel <= SNMF_RTOL for _, rel in errs.values())
         log("snmf_kernel", case=case, rtol_of_max=SNMF_RTOL, ok=ok,
+            frozen_lam_padding_flr=pad_ok,
             max_abs_err={k: e[0] for k, e in errs.items()},
             max_rel_err={k: e[1] for k, e in errs.items()})
         check(ok, f"B4/B5 disagree with their plain versions at {case}")
@@ -1047,25 +1103,49 @@ def snmf_phases(card, config):
     check(infer_launches == {"pass1": INFER_ITERS, "pass2": INFER_ITERS},
           f"snmf_infer_irm launched {infer_launches}, expected "
           f"{INFER_ITERS} each")
+    # its passes against their plain versions on its frames and dictionary
+    w_dev = torch.from_numpy(w_noisy).cuda()
+    w_dev = w_dev / (w_dev * w_dev).sum(dim=0, keepdim=True).sqrt()
+    h_rand = 0.1 + torch.rand(
+        (w_dev.shape[1], x_frames.shape[1]), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(13))
+    infer_errs, pad_ok = snmf_frozen_errors(x_frames, h_rand, w_dev, 1.0)
+    del w_dev, h_rand
+    infer_ok = pad_ok and all(rel <= SNMF_RTOL
+                              for _, rel in infer_errs.values())
     log("snmf_infer", card=card, frames=int(x_frames.shape[1]),
         launches=infer_launches, seconds=infer_s,
-        irm_min=float(irm.min()), irm_max=float(irm.max()))
+        irm_min=float(irm.min()), irm_max=float(irm.max()),
+        rtol_of_max=SNMF_RTOL, frozen_passes_ok=infer_ok,
+        frozen_max_abs_err={k: e[0] for k, e in infer_errs.items()},
+        frozen_max_rel_err={k: e[1] for k, e in infer_errs.items()})
+    check(infer_ok, "the frozen route's passes disagree with their plain "
+          f"versions at {x_frames.shape[1]} frames")
 
     # 13. the solver on the kernels against the solver on the plain passes
     m, r2, n = 257, 2 * SNMF_R, x_frames.shape[1]
     w0 = torch.rand((m, r2), generator=gen, device="cuda")
     h0 = torch.rand((r2, n), generator=gen, device="cuda")
-    w_mask = torch.arange(r2, device="cuda") >= r2 // 2
-    runs = [snmf_mu.sparse_nmf_ed(x_frames, w0, h0, 1.0, w_mask, 10, 0.0,
-                                  passes=passes)
-            for passes in (None, snmf_mu.PLAIN_PASSES)]
-    (w_k, _, _, costs_k, _), (w_p, _, _, costs_p, _) = runs
-    w_err = (w_k - w_p).abs().max().item() / w_p.abs().max().item()
-    cost_err = ((costs_k - costs_p).abs() / costs_p.abs()).max().item()
+    parity = {}
+    for route, w_mask in (
+            ("general", torch.arange(r2, device="cuda") >= r2 // 2),
+            ("frozen", torch.zeros(r2, dtype=torch.bool, device="cuda"))):
+        runs = [snmf_mu.sparse_nmf_ed(x_frames, w0, h0, 1.0, w_mask, 10, 0.0,
+                                      passes=passes)
+                for passes in (None, snmf_mu.PLAIN_PASSES)]
+        (w_k, h_k, _, costs_k, _), (w_p, h_p, _, costs_p, _) = runs
+        parity[route] = {
+            "w_max_rel_err":
+                (w_k - w_p).abs().max().item() / w_p.abs().max().item(),
+            "h_max_rel_err":
+                (h_k - h_p).abs().max().item() / h_p.abs().max().item(),
+            "cost_max_rel_err":
+                ((costs_k - costs_p).abs() / costs_p.abs()).max().item(),
+            "costs": costs_k.tolist()}
     log("snmf_parity", shape=[m, r2, n], iterations=10, rtol=SNMF_RTOL,
-        w_max_rel_err=w_err, cost_max_rel_err=cost_err,
-        costs=costs_k.tolist())
-    check(w_err <= SNMF_RTOL and cost_err <= SNMF_RTOL,
+        **parity["general"], frozen_route=parity["frozen"])
+    check(all(p[k] <= SNMF_RTOL for p in parity.values()
+              for k in ("w_max_rel_err", "h_max_rel_err", "cost_max_rel_err")),
           "sparse_nmf_ed on the kernels disagrees with the plain passes")
     del runs, w0, h0, x_frames
 
@@ -1073,7 +1153,9 @@ def snmf_phases(card, config):
     m, r2, n = SNMF_TIMES_SHAPE
     v, h, w = snmf_operands(np.random.default_rng(12), m, r2, n)
     errs = snmf_errors(v, h, w, 1.0)
-    check(all(rel <= SNMF_RTOL for _, rel in errs.values()),
+    frozen_errs, pad_ok = snmf_frozen_errors(v, h, w, 1.0)
+    check(pad_ok and all(rel <= SNMF_RTOL for errs_ in (errs, frozen_errs)
+                         for _, rel in errs_.values()),
           f"B4/B5 disagree with their plain versions at {m}x{n}x{r2}")
     # no float atomics, every sum in a fixed order: a repeat is bit-equal
     first = (*snmf_mu.snmf_mu_pass1(v, h, w, 1.0),
@@ -1112,6 +1194,30 @@ def snmf_phases(card, config):
     all_w = torch.ones(r2, dtype=torch.bool, device="cuda")
     split = profile_split(
         lambda: snmf_mu.mu_ed_iteration(v, h, w, 1.0, all_w))
+    # the frozen route's iteration, W^T v and lam already in its state (as
+    # in every iteration of a solve but the first), beside the general one
+    none_w = torch.zeros(r2, dtype=torch.bool, device="cuda")
+    state, h_cur = snmf_mu.FrozenW(), [h]
+
+    def frozen_iteration():
+        h_cur[0] = snmf_mu.mu_ed_iteration(v, h_cur[0], w, 1.0, none_w, None,
+                                           False, None, state)[0]
+
+    frozen_iteration()
+    iteration_ms = {
+        "general": cuda_ms(
+            lambda: snmf_mu.mu_ed_iteration(v, h, w, 1.0, all_w, None, True),
+            5),
+        "frozen": cuda_ms(frozen_iteration, 5)}
+    frozen_split = profile_split(frozen_iteration)
+    # each frozen pass alone, on the h the state holds (B4 leaves it so,
+    # B5 moves it to that same h)
+    frozen_ms = {
+        "pass1": cuda_ms(
+            lambda: snmf_mu.snmf_mu_frozen_pass1(h_cur[0], 1.0, state), 5),
+        "pass2": cuda_ms(
+            lambda: snmf_mu.snmf_mu_frozen_pass2(v, h_cur[0], state), 5)}
+    del state, h_cur
     n_iter = 20
     nmf_params = snmf.SNMFParams(r=r2, cf="ed", sparsity=1.0,
                                  max_iter=n_iter, conv_eps=0.0,
@@ -1123,8 +1229,12 @@ def snmf_phases(card, config):
     torch.cuda.synchronize()
     per_iter = (time.perf_counter() - t0) / n_iter
     # no share of a peak may read over 100%
-    check(all(ms[k] >= bounds[k]["bound_ms"] for k in ms),
-          f"a kernel is faster than its bound: {ms} against {bounds}")
+    check(all(ms[k] >= bounds[k]["bound_ms"]
+              and frozen_ms[k] >= bounds[f"frozen_{k}"]["bound_ms"]
+              for k in ms)
+          and iteration_ms["frozen"] >= bounds["frozen_iter"]["bound_ms"],
+          f"a kernel is faster than its bound: {ms}, {frozen_ms}, "
+          f"{iteration_ms} against {bounds}")
     log("snmf_times", card=card, shape=[m, r2, n], ms=ms, plain_ms=plain_ms,
         cublas_products_ms=cublas_ms,
         useful_tflops={k: bounds[k]["flops"] / ms[k] / 1e9 for k in ms},
@@ -1140,19 +1250,35 @@ def snmf_phases(card, config):
         max_rel_err={k: e[1] for k, e in errs.items()},
         snmf_iters_per_s=1.0 / per_iter,
         seconds_for_1000_iter_dictionary=1000.0 * per_iter,
-        iterations_timed=n_iter, iteration_split=split)
+        iterations_timed=n_iter, iteration_split=split,
+        frozen_ms=frozen_ms,
+        frozen_share_of_bound={
+            k: bounds[f"frozen_{k}"]["bound_ms"] / frozen_ms[k]
+            for k in frozen_ms},
+        frozen_max_abs_err={k: e[0] for k, e in frozen_errs.items()},
+        frozen_max_rel_err={k: e[1] for k, e in frozen_errs.items()},
+        iteration_ms=iteration_ms,
+        frozen_iteration_bound={
+            k: bounds["frozen_iter"][k]
+            for k in ("flops", "bound_ms", "bound_by", "bound_3xtf32_ms")},
+        frozen_iteration_share_of_bound=(
+            bounds["frozen_iter"]["bound_ms"] / iteration_ms["frozen"]),
+        frozen_iteration_split=frozen_split)
 
     rows = []
-    for name, line, outputs in (("pass1", 97, ("h_new", "a", "b", "sp_sum")),
-                                ("pass2", 134, ("div",))):
+    for name, line, outputs, frozen_outputs in (
+            ("pass1", 97, ("h_new", "a", "b", "sp_sum"),
+             ("numer", "lam", "h_new", "sp_sum")),
+            ("pass2", 134, ("div",), ("div", "lam_next"))):
+        frozen_bound = bounds[f"frozen_{name}"]
         rows.append({
             "name": f"snmf_mu_{name}",
             "route": "cuda",
             "source": "drnmf_torch/ops/csrc/snmf_mu.cu",
             "replaces": f"drnmf_tpu/ops/pallas/snmf_mu.py:{line}",
             "launches": launches[name],
-            "launches_by_path": {"snmf_recipe": launches[name],
-                                 "snmf_infer": infer_launches[name]},
+            # the general route's; main adds the paths that run both
+            "launches_by_path": {"snmf_recipe": launches[name]},
             "max_abs_err": max(errs[o][0] for o in outputs),
             "ms": ms[name],
             "plain_ms": plain_ms[name],
@@ -1164,6 +1290,17 @@ def snmf_phases(card, config):
             # B5 is one product and an elementwise sum; no single call
             # computes B4
             "library_ms": cublas_ms[name] if name == "pass2" else None,
+            # the same kernel through its frozen-W wrapper, all that
+            # snmf_infer launches (W^T v and the first lam once a solve,
+            # in snmf_mu_frozen_init, counted as no launch)
+            "frozen_route": {
+                "wrapper": f"snmf_mu_frozen_{name}",
+                "launches_by_path": {"snmf_infer": infer_launches[name]},
+                "max_abs_err": max(frozen_errs[o][0] for o in frozen_outputs),
+                "ms": frozen_ms[name],
+                "bound_ms": frozen_bound["bound_ms"],
+                "bound_by": frozen_bound["bound_by"],
+                "share_of_bound": frozen_bound["bound_ms"] / frozen_ms[name]},
         })
     return rows
 
@@ -3867,7 +4004,9 @@ def main():
         "bound_f32_cuda_cores_ms": b3_bounds_main["bound_f32_cuda_cores_ms"],
         "library_ms": None,
     }, {**backward_row, "launches_by_path": by_path("factored_backward")}]
-    for row in snmf_rows:  # the scored pipeline's dictionary stage
+    # the scored pipeline's dictionary stage and SNMF run, and the other
+    # paths: launches of either route
+    for row in snmf_rows:
         for path, counts in (("pipeline", pipeline_launches),
                              ("parallel", parallel_launches),
                              ("pipelined", pipelined_launches),

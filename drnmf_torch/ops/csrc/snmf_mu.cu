@@ -11,6 +11,20 @@
 //        sp_sum = sp * sum(h')
 //   B5:  div  = sum((v - max(W h, flr))^2)   (called with W', h')
 //
+// With every column of W frozen the solver takes another route, the same
+// products in the same order for every value it reads (snmf_mu_frozen_*):
+//
+//   init:       numer = W^T v,  lam = max(W h, flr)
+//   B4 each:    h' = h * numer / max(W^T lam + sp, flr),  sp_sum
+//   B5 each:    lam = max(W h', flr) (kept for the next iteration) and div
+//
+// two products an iteration where the general route runs seven: W^T v does
+// not change, the statistics A and B are not needed, and the lam' of step 3
+// is the lam of the next iteration's step 1 and the product B5 repeats.
+// Such an iteration is bound by its bytes: at m=257, r=2000, n=140,000 it
+// reads h, numer, lam and v and writes h' and lam, 3.79 GB or 1.13 ms at
+// 3.35 TB/s, where its two products take 0.58 ms in one TF32 pass.
+//
 // What bounds them on an H100.  B4 is six products of 2*m*r*n flops each
 // (863.5 GFLOP at m=257, r=2000, n=140,000), B5 one, against 2.4 GB and
 // 1.26 GB of compulsory traffic (0.7 and 0.38 ms at 3.35 TB/s).  On the
@@ -105,14 +119,15 @@ constexpr int SUM_THREADS = 1024;
 constexpr int MAX_SLICES = 32;
 constexpr long long FRAMES_PER_SLICE = 4096;
 
-enum Epi { EPI_LAM, EPI_HUPD, EPI_STATS, EPI_DIV };
+// the last template argument of mu_gemm; EPI_DIV (3) is B5's alone
+enum Epi { EPI_LAM, EPI_HUPD, EPI_STATS, EPI_DIV, EPI_NUMER };
 
 // D^T: out[col * ldc + row] for row on the M axis, col on the N axis, from
 //   sum over k in [z*kchunk, (z+1)*kchunk) of A(row, k) B(col, k).
 // A(row, k) is a[k * lda + row], or a[row * lda + k] when A_KMAJOR.
 // B(col, k) is b[col * ldb + k].  EPI_HUPD has two A operands (v, lam) and
-// two accumulators; EPI_STATS picks b[0] or b[1] and out[0] or out[1] by
-// the block's N tile.
+// two accumulators, or on the frozen route one (lam) and numer from memory;
+// EPI_STATS picks b[0] or b[1] and out[0] or out[1] by the block's N tile.
 struct Args {
   const float* a[2];
   long long lda;
@@ -128,6 +143,7 @@ struct Args {
   float* out[2];
   long long ldc;
   const float* e;    // EPI_HUPD: h; EPI_DIV: v (indexed like out)
+  const float* numer;  // EPI_HUPD with one A operand: W^T v (like out)
   float sp;          // EPI_HUPD: the scalar sparsity
   float* partial;    // EPI_HUPD, EPI_DIV: one float per block
   int ntn;           // N tiles per B operand
@@ -389,7 +405,8 @@ __global__ void __launch_bounds__(THREADS, 2) mu_gemm(Args p) {
       const int col = col0 + 8 * j + 2 * t + (i & 1);
       // lam's rows are padded to ldc frames: the padding holds flr, so the
       // wide copies that read it later find finite numbers
-      if (row >= (EPI == EPI_LAM ? p.ldc : p.M) || col >= p.N) continue;
+      const bool writes_lam = EPI == EPI_LAM || (EPI == EPI_DIV && out);
+      if (row >= (writes_lam ? p.ldc : p.M) || col >= p.N) continue;
       const size_t o = (size_t)col * p.ldc + row;
       const float d =
           PROMOTE ? promoted[(4 * j + i) * THREADS] + acc[0][4 * j + i]
@@ -398,14 +415,22 @@ __global__ void __launch_bounds__(THREADS, 2) mu_gemm(Args p) {
         out[o] = fmaxf(d, FLR);
       } else if (EPI == EPI_HUPD) {
         // the reference's order: h * numer / max(denom + sp, flr)
-        const float hn = p.e[o] * d / fmaxf(acc[NA - 1][4 * j + i] + p.sp, FLR);
+        const float numer = NA == 2 ? d : p.numer[o];
+        const float hn =
+            p.e[o] * numer / fmaxf(acc[NA - 1][4 * j + i] + p.sp, FLR);
         out[o] = hn;
         local += hn;
       } else if (EPI == EPI_STATS) {
         out[slice + o] = d;
-      } else {  // EPI_DIV
-        const float diff = p.e[o] - fmaxf(d, FLR);
-        local = fmaf(diff, diff, local);
+      } else if (EPI == EPI_NUMER) {
+        out[o] = d;
+      } else {  // EPI_DIV, and lam for the next iteration where out is set
+        const float lam = fmaxf(d, FLR);
+        if (out) out[o] = lam;
+        if (row < p.M) {
+          const float diff = p.e[o] - lam;
+          local = fmaf(diff, diff, local);
+        }
       }
     }
   }
@@ -455,7 +480,8 @@ void stat_slices(long long n, int* slices, long long* kchunk) {
 
 // The instantiations: lam, the divergence and the statistics (one
 // accumulator, 88 columns of m, promoted sums), the H update (two
-// accumulators, 64 columns of r).
+// accumulators, 64 columns of r; one on the frozen route, whose W^T v is
+// the same product with one accumulator and its own epilogue).
 constexpr int NI_WIDE = 88;
 // stages (of two k8 steps) the tensor cores sum before a promotion.  At
 // 257 x 140,000 x 2000 on an H100 80GB HBM3 (700 W), 8 keeps the error at
@@ -472,7 +498,8 @@ long long tiles(long long rows, long long cols, int ni) {
 template <int NI, int NA, bool A_KMAJOR, int AVEC, int EPI>
 cudaError_t launch_vec(Args p, int slices, cudaStream_t stream) {
   // the H update contracts over m, a few hundred terms: no promotion
-  constexpr int PROMOTE = EPI == EPI_HUPD ? 0 : PROMOTE_STAGES;
+  constexpr int PROMOTE =
+      EPI == EPI_HUPD || EPI == EPI_NUMER ? 0 : PROMOTE_STAGES;
   using T = Tile<NI, NA, A_KMAJOR, AVEC, PROMOTE>;
   auto kernel = mu_gemm<NI, NA, A_KMAJOR, AVEC, PROMOTE, EPI>;
   p.ntn = (int)cdiv(p.N, T::BN);
@@ -506,20 +533,32 @@ cudaError_t sum_all(const float* part, long long count, float scale,
   return cudaGetLastError();
 }
 
-// max(W h, flr) as (m, ld_out) with rows padded to ld_out frames, or with
-// `v` the divergence's per-block partials.
+// max(W h, flr) over n frames.  Without `v`: into lam (m, ld) with rows
+// padded to ld frames (EPI_LAM).  With `v` (m, ld): the divergence's
+// per-block partials into `part` (EPI_DIV, B5), and lam as well where it is
+// not null.
 cudaError_t launch_wh(const float* h, const float* w_pad, long long r_pad,
-                      const float* v, float* out, long long ld_out, int m,
-                      int r, long long n, cudaStream_t stream) {
+                      const float* v, float* lam, float* part, long long ld,
+                      int m, int r, long long n, cudaStream_t stream) {
   Args p = {};
   p.a[0] = h; p.lda = n; p.b[0] = w_pad; p.ldb = r_pad;
   p.M = (int)n; p.Ma = n; p.N = m; p.K = r; p.Kb = r_pad; p.kchunk = r_pad;
-  if (v == nullptr) {
-    p.out[0] = out; p.ldc = ld_out;
-    return launch<NI_WIDE, 1, false, EPI_LAM>(p, 1, stream);
-  }
-  p.e = v; p.ldc = n; p.partial = out;
+  p.out[0] = lam; p.ldc = ld;
+  if (v == nullptr) return launch<NI_WIDE, 1, false, EPI_LAM>(p, 1, stream);
+  p.e = v; p.partial = part;
   return launch<NI_WIDE, 1, false, EPI_DIV>(p, 1, stream);
+}
+
+// The H update's product, rows n, columns r, contraction m: A = v_pad or
+// lam (m x n_pad), B = W^T padded.
+Args hupd_args(const float* a, const float* wt_pad, int m, int r,
+               long long n) {
+  const long long n_pad = cdiv(n, 4) * 4, m_pad = cdiv(m, 4) * 4;
+  Args p = {};
+  p.a[0] = a; p.lda = n_pad; p.b[0] = wt_pad; p.ldb = m_pad;
+  p.M = (int)n; p.Ma = n_pad; p.N = r; p.K = m; p.Kb = m_pad; p.kchunk = m_pad;
+  p.ldc = n;
+  return p;
 }
 
 }  // namespace
@@ -548,8 +587,7 @@ extern "C" int snmf_mu_pass1(const float* v_pad, const float* h,
                              float* sp_sum, float* workspace, int m, int r,
                              long long n, void* stream_p) {
   cudaStream_t stream = (cudaStream_t)stream_p;
-  const long long n_pad = cdiv(n, 4) * 4, r_pad = cdiv(r, 4) * 4,
-                  m_pad = cdiv(m, 4) * 4;
+  const long long n_pad = cdiv(n, 4) * 4, r_pad = cdiv(r, 4) * 4;
   int slices;
   long long kchunk;
   stat_slices(n, &slices, &kchunk);
@@ -560,18 +598,18 @@ extern "C" int snmf_mu_pass1(const float* v_pad, const float* h,
   float* part_b = part_a + (size_t)slices * m * r;
 
   // 1. lam = max(W h, flr): rows n, columns m, contraction r
-  CHECK(launch_wh(h, w_pad, r_pad, nullptr, lam, n_pad, m, r, n, stream));
+  CHECK(launch_wh(h, w_pad, r_pad, nullptr, lam, nullptr, n_pad, m, r, n,
+                  stream));
 
-  // 2. h' = h * (W^T v) / max(W^T lam + sp, flr): rows n, columns r,
-  //    contraction m
-  Args p = {};
-  p.a[0] = v_pad; p.a[1] = lam; p.lda = n_pad; p.b[0] = wt_pad; p.ldb = m_pad;
-  p.M = (int)n; p.Ma = n_pad; p.N = r; p.K = m; p.Kb = m_pad; p.kchunk = m_pad;
-  p.out[0] = h_new; p.ldc = n; p.e = h; p.sp = sparsity; p.partial = part_h;
+  // 2. h' = h * (W^T v) / max(W^T lam + sp, flr)
+  Args p = hupd_args(v_pad, wt_pad, m, r, n);
+  p.a[1] = lam;
+  p.out[0] = h_new; p.e = h; p.sp = sparsity; p.partial = part_h;
   CHECK((launch<NI_HUPD, 2, false, EPI_HUPD>(p, 1, stream)));
 
   // 3. lam' = max(W h', flr)
-  CHECK(launch_wh(h_new, w_pad, r_pad, nullptr, lam, n_pad, m, r, n, stream));
+  CHECK(launch_wh(h_new, w_pad, r_pad, nullptr, lam, nullptr, n_pad, m, r, n,
+                  stream));
 
   // 4. (v h'^T)^T and (lam' h'^T)^T per frame slice: rows r, columns m,
   //    contraction n; stored as (m, r)
@@ -601,7 +639,63 @@ extern "C" int snmf_mu_pass2(const float* v, const float* h,
                              const float* w_pad, float* div, float* workspace,
                              int m, int r, long long n, void* stream_p) {
   cudaStream_t stream = (cudaStream_t)stream_p;
-  CHECK(launch_wh(h, w_pad, cdiv(r, 4) * 4, v, workspace, n, m, r, n, stream));
+  CHECK(launch_wh(h, w_pad, cdiv(r, 4) * 4, v, nullptr, workspace, n, m, r,
+                  n, stream));
+  CHECK(sum_all(workspace, tiles(n, m, NI_WIDE), 1.f, div, stream));
+  return 0;
+}
+
+// The frozen route's B4, in floats of workspace: the per-block partials of
+// sum(h').
+extern "C" long long snmf_mu_frozen_pass1_workspace(int m, int r,
+                                                    long long n) {
+  return tiles(n, r, NI_HUPD);
+}
+
+// The frozen route's state, once a solve (or wherever it no longer holds
+// the h of the next iteration): numer = W^T v (r x n), by the same k-chain
+// as the general route's first accumulator, and lam = max(W h, flr)
+// (m x n_pad, rows padded with flr).  Operands as for snmf_mu_pass1.
+extern "C" int snmf_mu_frozen_init(const float* v_pad, const float* h,
+                                   const float* w_pad, const float* wt_pad,
+                                   float* numer, float* lam, int m, int r,
+                                   long long n, void* stream_p) {
+  cudaStream_t stream = (cudaStream_t)stream_p;
+  Args p = hupd_args(v_pad, wt_pad, m, r, n);
+  p.out[0] = numer;
+  CHECK((launch<NI_HUPD, 1, false, EPI_NUMER>(p, 1, stream)));
+  CHECK(launch_wh(h, w_pad, cdiv(r, 4) * 4, nullptr, lam, nullptr,
+                  cdiv(n, 4) * 4, m, r, n, stream));
+  return 0;
+}
+
+// The frozen route's B4: h' = h * numer / max(W^T lam + sp, flr) and
+// sp_sum = sp * sum(h'), numer and lam as snmf_mu_frozen_init or the last
+// snmf_mu_frozen_pass2 left them.
+extern "C" int snmf_mu_frozen_pass1(const float* h, const float* wt_pad,
+                                    const float* numer, const float* lam,
+                                    float sparsity, float* h_new,
+                                    float* sp_sum, float* workspace, int m,
+                                    int r, long long n, void* stream_p) {
+  cudaStream_t stream = (cudaStream_t)stream_p;
+  Args p = hupd_args(lam, wt_pad, m, r, n);
+  p.out[0] = h_new; p.e = h; p.numer = numer; p.sp = sparsity;
+  p.partial = workspace;
+  CHECK((launch<NI_HUPD, 1, false, EPI_HUPD>(p, 1, stream)));
+  CHECK(sum_all(workspace, tiles(n, r, NI_HUPD), sparsity, sp_sum, stream));
+  return 0;
+}
+
+// The frozen route's B5: the divergence of h against v_pad (m x n_pad), as
+// snmf_mu_pass2, and max(W h, flr) into lam (m x n_pad, padding flr) for
+// the next iteration.  Workspace: snmf_mu_pass2_workspace.
+extern "C" int snmf_mu_frozen_pass2(const float* v_pad, const float* h,
+                                    const float* w_pad, float* lam, float* div,
+                                    float* workspace, int m, int r,
+                                    long long n, void* stream_p) {
+  cudaStream_t stream = (cudaStream_t)stream_p;
+  CHECK(launch_wh(h, w_pad, cdiv(r, 4) * 4, v_pad, lam, workspace,
+                  cdiv(n, 4) * 4, m, r, n, stream));
   CHECK(sum_all(workspace, tiles(n, m, NI_WIDE), 1.f, div, stream));
   return 0;
 }

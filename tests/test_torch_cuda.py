@@ -572,6 +572,86 @@ def _snmf_passes_match_plain(device):
          snmf_mu.snmf_mu_pass2_reference) = plain
 
 
+def _snmf_frozen_route_matches_by_hand(device):
+    """With every column of W frozen ``sparse_nmf_ed`` takes the frozen
+    route: one B4 and one B5 launch an iteration, and ``h``, the divergences
+    and the costs bit-equal to the general route's launches
+    (``snmf_mu_pass1`` then ``snmf_mu_pass2``) looped by hand on the same
+    padded operands, since every value read comes from the same product
+    instance in the same order; a repeat is bit-equal.  The frozen passes
+    alone on frames not padded to four equal the general passes too."""
+    rng = np.random.default_rng(6)
+    iters = 4
+
+    def uniform(lo, shape):
+        return torch.from_numpy(
+            rng.uniform(lo, 1.0, shape).astype(np.float32)).to(device)
+
+    for m, r, n in SNMF_SHAPES:
+        for sparsity in (0.0, 0.7):
+            case = f"m={m} r={r} n={n} sparsity={sparsity}"
+            v, w0, h0 = (uniform(0.01, (m, n)), uniform(0.1, (m, r)),
+                         uniform(0.1, (r, n)))
+            frozen = torch.zeros(r, dtype=torch.bool, device=device)
+            before = dict(snmf_mu.LAUNCHES)
+            runs = [snmf_mu.sparse_nmf_ed(v, w0, h0, sparsity, frozen, iters,
+                                          0.0) for _ in range(2)]
+            torch.cuda.synchronize()
+            assert snmf_mu.LAUNCHES == {k: before[k] + 2 * iters
+                                        for k in before}, case
+            w, h, divs, costs, n_iter = runs[0]
+            assert n_iter == runs[1][4] == iters, case
+            for a, b in zip(runs[0][:4], runs[1][:4]):
+                assert torch.equal(a, b), case  # no atomics: bit for bit
+
+            wn = (w0 * w0).sum(dim=0).sqrt()
+            w_start = (w0 / wn[None, :]).contiguous()
+            assert torch.equal(w, w_start), case
+            v_pad = snmf_mu.pad_rows(v)
+            h_hand = snmf_mu.pad_rows(h0 * wn[:, None])
+            for it in range(iters):
+                h_hand, _, _, sp_sum = snmf_mu.snmf_mu_pass1(
+                    v_pad, h_hand, w_start, sparsity)
+                div = snmf_mu.snmf_mu_pass2(v_pad, h_hand, w_start)
+                assert torch.equal(divs[it], div), f"{case} div {it}"
+                assert torch.equal(costs[it], div + sp_sum), \
+                    f"{case} cost {it}"
+            assert torch.equal(h, h_hand[:, :n]), case
+
+    m, r, n = 257, 100, 4099  # n = 3 mod 4: the narrow copies of h
+    v, w, h = uniform(0.01, (m, n)), uniform(0.1, (m, r)), uniform(0.1, (r, n))
+    w = w / (w * w).sum(dim=0, keepdim=True).sqrt()
+    state, h_frozen, h_general = snmf_mu.FrozenW(), h, h
+    before = dict(snmf_mu.LAUNCHES)
+    snmf_mu.snmf_mu_frozen_init(v, h, w, state)
+    assert snmf_mu.LAUNCHES == before  # once a solve: no iteration's launch
+    for it in range(3):
+        h_frozen, sp_frozen = snmf_mu.snmf_mu_frozen_pass1(h_frozen, 0.7,
+                                                           state)
+        div_frozen = snmf_mu.snmf_mu_frozen_pass2(v, h_frozen, state)
+        h_general, _, _, sp_general = snmf_mu.snmf_mu_pass1(v, h_general, w,
+                                                            0.7)
+        div_general = snmf_mu.snmf_mu_pass2(v, h_general, w)
+        for name, a, b in (("h", h_frozen, h_general),
+                           ("sp_sum", sp_frozen, sp_general),
+                           ("div", div_frozen, div_general)):
+            assert torch.equal(a, b), f"unpadded n={n} {name} {it}"
+    assert state.lam.shape == (m, n + 1)
+    assert bool((state.lam[:, n:] == snmf_mu.FLR).all())
+
+    # a state that does not hold the h, or holds other shapes, raises
+    # before any launch
+    before = dict(snmf_mu.LAUNCHES)
+    with pytest.raises(ValueError):
+        snmf_mu.snmf_mu_frozen_pass1(h, 0.7, state)
+    with pytest.raises(ValueError):
+        snmf_mu.snmf_mu_frozen_pass2(v, h, snmf_mu.FrozenW())
+    with pytest.raises(ValueError):
+        snmf_mu.snmf_mu_frozen_pass2(v[:, :8].contiguous(),
+                                     h[:, :8].contiguous(), state)
+    assert snmf_mu.LAUNCHES == before
+
+
 def _sparse_nmf_matches_cpu(device):
     """``sparse_nmf`` on the card against the CPU from the same start: the
     ED route through B4/B5 (one launch each per iteration) and the KL route
@@ -608,6 +688,13 @@ def test_snmf_on_card(cuda):
     against the CPU."""
     _snmf_passes_match_plain(cuda)
     _sparse_nmf_matches_cpu(cuda)
+
+
+@pytest.mark.cuda
+def test_snmf_frozen_route_on_card(cuda):
+    """The frozen-dictionary route of ``sparse_nmf_ed`` against the general
+    route's launches by hand, bit for bit, with its launch counts."""
+    _snmf_frozen_route_matches_by_hand(cuda)
 
 
 TRAIN_SHAPES = [  # (B, T, F, r, K)

@@ -180,6 +180,38 @@ def test_sparse_nmf_sharded_matches_jax(rng):
         np.testing.assert_array_equal(ranks[0][i][0], ranks[1][i][0])
 
 
+def test_sparse_nmf_sharded_frozen_route_matches_one_process(rng):
+    """2 ranks, 37 frames, the whole dictionary frozen (the frozen route:
+    each rank keeps W^T v and lam of its own frames, and the divergence and
+    the sparsity cost are summed over the ranks together after B5), at
+    sparsity 0.4 and 0: against the port's single process, W bit for bit
+    (the normalised ``init_w``), H and the cost and divergence series at
+    2e-5 / 1e-6, every rank with the same series."""
+    from drnmf_torch.ops.snmf import SNMFParams, sparse_nmf
+
+    m, n, r = 12, 37, 5
+    w0 = rng.uniform(0.1, 1.0, (m, r)).astype(np.float32)
+    h0 = rng.uniform(0.1, 1.0, (r, n)).astype(np.float32)
+    v = (w0 @ h0 + 0.01 * rng.uniform(size=(m, n))).astype(np.float32)
+    cases = [dict(r=r, cf="ed", sparsity=sp, max_iter=20, init_w=w0,
+                  init_h=h0, w_update_ind=np.zeros(r, bool))
+             for sp in (0.4, 0.0)]
+    ranks = _ranks(_snmf_rank, 2, v, cases)
+    for i, kw in enumerate(cases):
+        want = sparse_nmf(v, SNMFParams(**kw), device="cpu")
+        assert want.n_iter == kw["max_iter"]
+        for rank, res in enumerate(ranks):
+            w, h, cost, div, n_iter = res[i]
+            msg = f"case {i} rank {rank}"
+            assert n_iter == want.n_iter, msg
+            np.testing.assert_array_equal(w, want.w, err_msg=msg)
+            for name, got, ref in (("h", h, want.h), ("cost", cost, want.cost),
+                                   ("div", div, want.div)):
+                np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-6,
+                                           err_msg=f"{msg} {name}")
+        np.testing.assert_array_equal(ranks[0][i][2], ranks[1][i][2])
+
+
 # ---------------------------------------------------------------------------
 # data-parallel and FSDP training
 # ---------------------------------------------------------------------------

@@ -174,6 +174,122 @@ def test_mu_passes_and_ed_solver_match_pallas(rng):
             _close(h, ref[1], WH_TOL, case)
 
 
+@pytest.mark.parametrize("m,r,n,sparsity,conv_eps",
+                         [(17, 6, 40, 0.7, 0.0), (9, 4, 22, 0.0, 1e-3)])
+def test_frozen_route_matches_pallas(rng, m, r, n, sparsity, conv_eps):
+    """With every column of W frozen, ``sparse_nmf_ed`` (the frozen route:
+    W^T v once, B4 as the H update alone, B5 handing lam on; here their
+    plain versions) against the JAX package's ``sparse_nmf_ed_pallas``, and
+    bit for bit against the general route's passes looped by hand on the
+    same padded operands: the same arithmetic for every value read."""
+    case = f"m={m} r={r} n={n} sparsity={sparsity}"
+    v, w0, h0 = _nmf_inputs(rng, m, r, n)
+    frozen = np.zeros(r, bool)
+    max_iter = 8 if conv_eps == 0 else 200
+    ref = jmu.sparse_nmf_ed_pallas(v, w0, h0, sparsity, jnp.asarray(frozen),
+                                   max_iter=max_iter, conv_eps=conv_eps,
+                                   interpret=True, bf16=False)
+    w, h, divs, costs, n_iter = tmu.sparse_nmf_ed(
+        T(v), T(w0), T(h0), sparsity, torch.from_numpy(frozen), max_iter,
+        conv_eps)
+    n_ref = int(ref[4])
+    assert abs(n_iter - n_ref) <= 1 and n_iter > 1, case
+    k = min(n_iter, n_ref)
+    _close(costs[:k], np.asarray(ref[3])[:k], COST_TOL, case)
+    _close(divs[:k], np.asarray(ref[2])[:k], COST_TOL, case)
+    _close(w, ref[0], WH_TOL, case)
+    if n_iter == n_ref:
+        _close(h, ref[1], WH_TOL, case)
+
+    wn = (T(w0) * T(w0)).sum(dim=0).sqrt()
+    w_start = (T(w0) / wn[None, :]).contiguous()
+    assert torch.equal(w, w_start), case
+    v_pad, h_by_hand = tmu.pad_rows(T(v)), tmu.pad_rows(T(h0) * wn[:, None])
+    for it in range(n_iter):
+        h_by_hand, _, _, sp_sum = tmu.snmf_mu_pass1_reference(
+            v_pad, h_by_hand, w_start, sparsity)
+        div = tmu.snmf_mu_pass2_reference(v_pad, h_by_hand, w_start)
+        assert torch.equal(divs[it], div), f"{case} iteration {it}"
+        assert torch.equal(costs[it], div + sp_sum), f"{case} iteration {it}"
+    assert torch.equal(h, h_by_hand[:, :n]), case
+
+
+def test_route_follows_the_mask_and_counts_frozen_iterations(rng):
+    """The frozen route runs where no column of W updates and the general
+    route where any does, whatever else is asked; traced, the counter
+    ``snmf.mu_iters_frozen_w`` adds a frozen solve's iterations once and a
+    general solve adds nothing to it."""
+    from drnmf_torch.utils.profiling import span, tally
+
+    m, r, n = 11, 6, 30
+    v, w0, h0 = _nmf_inputs(rng, m, r, n)
+    calls = {}
+
+    def spy(name, fn):
+        def counted(*args):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args)
+        return counted
+
+    passes = tmu.Passes(*(spy(name, fn) for name, fn in
+                          zip(tmu.Passes._fields, tmu.PLAIN_PASSES)))
+    for mask, iters, route in (
+            (np.zeros(r, bool), 7, {"frozen_init": 1, "frozen_pass1": 7,
+                                    "frozen_pass2": 7}),
+            (np.arange(r) < r // 2, 5, {"pass1": 5, "pass2": 5}),
+            (np.ones(r, bool), 3, {"pass1": 3, "pass2": 3})):
+        calls.clear()
+        # the span opens a window of its own, so the tally holds this solve
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]), \
+                span("test.solve"):
+            tmu.sparse_nmf_ed(T(v), T(w0), T(h0), 0.2, torch.from_numpy(mask),
+                              iters, 0.0, passes=passes)
+        counters = tally()["counters"]
+        assert calls == route, mask
+        if "frozen_init" in route:
+            assert counters == {"snmf.mu_iters_frozen_w": iters}
+        else:
+            assert "snmf.mu_iters_frozen_w" not in counters, mask
+
+
+def test_frozen_state_serves_only_its_own_tensors(rng):
+    """A :class:`FrozenW` holds W^T v and lam of one v, W and h: handed to
+    ``mu_ed_iteration`` with its own h it carries lam over, and with another
+    h or W, or its h changed in place, it is filled again; either way the
+    iteration equals one on a new state.  Its B4 on an h whose lam it does
+    not hold raises."""
+    m, r, n = 10, 5, 24
+    v, w0, h0 = (T(a) for a in _nmf_inputs(rng, m, r, n))
+    w = w0 / (w0 * w0).sum(dim=0, keepdim=True).sqrt()
+    w_other = (w * T(rng.uniform(0.5, 1.5, (m, r)).astype(np.float32)))
+    w_other = w_other / (w_other * w_other).sum(dim=0, keepdim=True).sqrt()
+    none = torch.zeros(r, dtype=torch.bool)
+
+    def iteration(h, w, state):
+        return tmu.mu_ed_iteration(v, h, w, 0.3, none, tmu.PLAIN_PASSES,
+                                   False, None, state)
+
+    state = tmu.FrozenW()
+    h1 = iteration(h0, w, state)[0]
+    assert state.holds(v, h1, w)
+    # the state's own h first (lam carried over), then others
+    for h, ww in ((h1, w), (h0, w), (h1, w_other), (h0.clone(), w)):
+        got, fresh = iteration(h, ww, state), iteration(h, ww, None)
+        for a, b in zip(got, fresh):
+            assert torch.equal(a, b)
+    h2 = h1.clone()
+    iteration(h2, w, state)
+    h2.mul_(2.0)  # in place: the state no longer holds it
+    assert not state.holds(v, h2, w)
+    for a, b in zip(iteration(h2, w, state), iteration(h2, w, None)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        tmu.snmf_mu_frozen_pass1(h0, 0.3, state)
+    with pytest.raises(ValueError):
+        tmu.snmf_mu_frozen_pass1(h0, 0.3, tmu.FrozenW())
+
+
 def test_sparse_nmf_routing_and_chunking(rng, monkeypatch):
     """``sparse_nmf`` routes ED / all-H / scalar sparsity to the MU solver
     and the rest to the plain core, agreeing with the JAX package's
