@@ -54,6 +54,7 @@ import torch
 from torch import nn
 
 from ..ops.drnmf_scan import LAUNCHES, drnmf_scan_dense, drnmf_scan_factored
+from ..utils.profiling import span
 from .batched_grad import scan_factored_train
 
 _EPS7 = 1e-7
@@ -417,18 +418,23 @@ def make_scan(params: dict, config: DRNMFConfig):
     :func:`_scan_hidden` (``dropout``: the keep masks (b_u, b_w) of this
     call, each a tensor or None).  A caller that scans many inputs with
     fixed parameters (a stream, block after block) keeps the returned
-    function."""
+    function.  Traced (``utils.profiling``), the dense route's build of
+    U, S, W and b and of B3's weight stacks is the span
+    ``drnmf.dense_weights``."""
     K, n2r = config.K_layers, config.hidden_dim
-    dense_route = is_plain(config) and not u_is_foldable(config)
-    U, S, W, b = _effective_matrices(params, config, dense_s=dense_route)
-    h0 = _h0(params, config)
-    if is_factored_plain(config, U, S):
-        kernel, weights = drnmf_scan_factored, _factored_weights(
-            config, U, S, W, b)
-    elif dense_route:
-        kernel, weights = drnmf_scan_dense, _dense_weights(config, U, S, W, b)
+    if is_plain(config) and not u_is_foldable(config):
+        with span("drnmf.dense_weights"):
+            U, S, W, b = _effective_matrices(params, config, dense_s=True)
+            kernel, weights = drnmf_scan_dense, _dense_weights(
+                config, U, S, W, b)
     else:
-        kernel = weights = None
+        U, S, W, b = _effective_matrices(params, config)
+        if is_factored_plain(config, U, S):
+            kernel, weights = drnmf_scan_factored, _factored_weights(
+                config, U, S, W, b)
+        else:
+            kernel = weights = None
+    h0 = _h0(params, config)
 
     def run(x, step_mask, scan_fn=None, state=None, dropout=None):
         if kernel is not None and is_plain(config, dropout is not None):

@@ -74,6 +74,7 @@ from typing import NamedTuple
 import torch
 
 from ..device import free_bytes
+from ..utils.profiling import count, span
 from . import build
 
 SOURCE = "drnmf_scan_factored.cu"  # B1
@@ -840,6 +841,10 @@ def drnmf_scan_dense(x, step_mask, h0, u1, uk, s_stack, w_stack, b_stack):
     floats (T, Bp, Fp), the carry and hidden planes (4, Bp, ld), zero past
     the batch, and the stretch partials (stretches, Bp, ld); where 2r is
     not a multiple of 4 it also pads the weights' rows to ld floats.
+
+    Traced (``utils.profiling``), each call adds B x T to the counter
+    ``scan.dense_row_steps`` (on the card, one B3 launch), and the scratch
+    staging before the launch is the span ``scan.dense_stage``.
     """
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, F), got {tuple(x.shape)}")
@@ -861,6 +866,7 @@ def drnmf_scan_dense(x, step_mask, h0, u1, uk, s_stack, w_stack, b_stack):
             ("b_stack", b_stack, (k_layers, n2r), f32)]:
         build.check_operand(name, t, shape, dtype, dev)
 
+    count("scan.dense_row_steps", bsz * t_len)
     if dev.type == "cpu":
         return drnmf_scan_dense_reference(x, step_mask, h0, u1, uk, s_stack,
                                           w_stack, b_stack)
@@ -881,15 +887,16 @@ def drnmf_scan_dense(x, step_mask, h0, u1, uk, s_stack, w_stack, b_stack):
             raise RuntimeError(f"drnmf_scan_dense cannot run here: {why} "
                                f"{shapes}")
         plan = dense_scan_plan(bsz, f, n2r, capacity)
-        x_t = x.new_zeros((t_len, plan.bp, plan.fp))
-        x_t[:, :bsz, :f] = x.transpose(0, 1)
-        state = x.new_zeros((4, plan.bp, plan.ld))
-        state[0, :bsz, :n2r] = h0
-        part = x.new_empty((plan.stretches, plan.bp, plan.ld))
-        weights = (u1, uk, s_stack, w_stack)
-        if plan.ld != n2r:  # rows of whole 16-byte copies, zero-padded
-            weights = tuple(torch.nn.functional.pad(a, (0, plan.ld - n2r))
-                            for a in weights)
+        with span("scan.dense_stage"):
+            x_t = x.new_zeros((t_len, plan.bp, plan.fp))
+            x_t[:, :bsz, :f] = x.transpose(0, 1)
+            state = x.new_zeros((4, plan.bp, plan.ld))
+            state[0, :bsz, :n2r] = h0
+            part = x.new_empty((plan.stretches, plan.bp, plan.ld))
+            weights = (u1, uk, s_stack, w_stack)
+            if plan.ld != n2r:  # rows of whole 16-byte copies, zero-padded
+                weights = tuple(torch.nn.functional.pad(a, (0, plan.ld - n2r))
+                                for a in weights)
         err = lib.drnmf_scan_dense(
             x_t.data_ptr(), step_mask.data_ptr(),
             *(a.data_ptr() for a in weights), b_stack.data_ptr(),
