@@ -14,7 +14,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.snmf import SNMFParams, sparse_nmf_chunked
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 
 
 def snmf_infer_irm(x_frames, w_noisy, params_snmf: SNMFParams,
@@ -26,27 +26,46 @@ def snmf_infer_irm(x_frames, w_noisy, params_snmf: SNMFParams,
     x_frames: (F, n_frames) nonnegative magnitudes (numpy or a tensor).
     w_noisy:  (F, 2r) = [W_clean, W_noise].
     ``generator``: for the random initial H (see ``ops.snmf.sparse_nmf``).
-    Returns numpy ``(irm (F, n_frames), h (2r, n_frames))``.
-    Traced, the call is the span ``snmf.call`` over ``snmf.h_to_host``
-    (in ``ops.snmf.sparse_nmf``), ``snmf.h_to_device`` and
-    ``snmf.mask_to_host``: the host round trip of ``h`` and the mask.
+    Returns ``(irm, h)``: the mask as a numpy (F, n_frames) array and H as
+    a (2r, n_frames) tensor.  The mask is built on the device from each
+    frame chunk's H as the solve leaves it, and only the mask is fetched.
+    Where the frames are one chunk, H is the solve's own tensor on the
+    device (``h.cpu().numpy()`` reads it on the host); over several, the
+    chunks' H are gathered into a host tensor, so the device holds one
+    chunk's at a time.  Traced, the call is the span ``snmf.call`` over
+    ``snmf.mask_to_host`` a chunk, and over several chunks
+    ``snmf.h_to_host`` a chunk; the counter ``snmf.h_kept_on_device``
+    adds the frames whose H never left the device.
     """
     with span("snmf.call", frames=int(x_frames.shape[1])):
         device = resolve_device(device)
         w_noisy = np.asarray(w_noisy, np.float32)
         r2 = w_noisy.shape[1]
         r = r2 // 2
+        n = int(x_frames.shape[1])
         infer_params = replace(params_snmf, r=r2, init_w=w_noisy,
                                w_update_ind=np.zeros(r2, bool), conv_eps=0.0,
                                max_iter=max_iter)
-        res = sparse_nmf_chunked(x_frames, infer_params, generator=generator,
-                                 frame_chunk=frame_chunk, device=device)
-        with span("snmf.h_to_device"):
-            h = torch.from_numpy(res.h).to(device)
         w = torch.from_numpy(w_noisy).to(device)
-        clean_est = w[:, :r] @ h[:r]
-        noise_est = w[:, r:] @ h[r:]
-        irm = clean_est / (1e-9 + clean_est + noise_est)
-        with span("snmf.mask_to_host"):
-            irm = irm.cpu().numpy()
-        return irm, res.h
+        masks, h_host = [], None
+
+        def take_h(cols, h):
+            nonlocal h_host
+            clean_est = w[:, :r] @ h[:r]
+            noise_est = w[:, r:] @ h[r:]
+            irm = clean_est / (1e-9 + clean_est + noise_est)
+            with span("snmf.mask_to_host"):
+                masks.append(irm.cpu().numpy())
+            if h.shape[1] == n:
+                count("snmf.h_kept_on_device", n)
+                return
+            if h_host is None:
+                h_host = torch.empty((r2, n), dtype=torch.float32)
+            with span("snmf.h_to_host"):
+                h_host[:, cols] = h.cpu()
+
+        res = sparse_nmf_chunked(x_frames, infer_params, generator=generator,
+                                 frame_chunk=frame_chunk, device=device,
+                                 take_h=take_h)
+        irm = masks[0] if len(masks) == 1 else np.concatenate(masks, axis=1)
+        return irm, res.h if res.h is not None else h_host

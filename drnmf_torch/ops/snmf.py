@@ -271,7 +271,7 @@ def default_frame_chunk(r: int, max_frames_at_r200: int = 700_000) -> int:
 def sparse_nmf_chunked(v, params: SNMFParams, generator=None,
                        frame_chunk: Optional[int] = None,
                        save_h: bool = True, verbose: bool = False,
-                       device="cuda") -> SNMFResult:
+                       device="cuda", take_h=None) -> SNMFResult:
     """Frame-chunked sparse NMF with W warm-started between chunks.
 
     The reference's chunk loop (snmf.py:9-85): each chunk runs a full MU
@@ -281,7 +281,12 @@ def sparse_nmf_chunked(v, params: SNMFParams, generator=None,
     (on the device, chunks are sliced there).  ``generator``: as for
     :func:`sparse_nmf`, drawn from chunk after chunk.  With
     ``save_h=False`` H never leaves the device and the result's ``h`` is
-    None."""
+    None.  ``take_h(cols, h)``, where given, takes the place of
+    ``save_h``: it is handed each chunk's H on the device with the chunk's
+    slice of ``v``'s columns, before the next chunk is solved, and H is
+    not fetched.  The result's ``h`` is then that device tensor where the
+    frames are one chunk, and None over several, so the device never holds
+    more than one chunk's H."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(
@@ -297,19 +302,24 @@ def sparse_nmf_chunked(v, params: SNMFParams, generator=None,
         frame_chunk = default_frame_chunk(r)
     n_chunks = max(1, -(-n // frame_chunk))
 
-    def solve(chunk, chunk_params):
+    def solve(chunk, chunk_params, cols):
         res = sparse_nmf(chunk, chunk_params, generator=generator,
-                         device_output=not save_h, device=device)
-        if not save_h:
+                         device_output=take_h is not None or not save_h,
+                         device=device)
+        if take_h is not None:
+            take_h(cols, res.h)
+            res = replace(res, w=_to_numpy(res.w),
+                          h=res.h if n_chunks == 1 else None)
+        elif not save_h:
             # only W leaves the device (H can be GBs at corpus scale)
-            res = SNMFResult(w=_to_numpy(res.w), h=None, div=res.div,
-                             cost=res.cost, n_iter=res.n_iter)
+            res = replace(res, w=_to_numpy(res.w), h=None)
         return res
 
     if n_chunks == 1:
-        return solve(v, params)
+        return solve(v, params, slice(0, n))
 
-    h_full = np.zeros((r, n), np.float32) if save_h else None
+    h_full = (np.zeros((r, n), np.float32)
+              if save_h and take_h is None else None)
     init_w = params.init_w
     w_ind = params.w_update_ind
     initial_cost = initial_div = final_cost = final_div = 0.0
@@ -322,7 +332,8 @@ def sparse_nmf_chunked(v, params: SNMFParams, generator=None,
         init_h = params.init_h
         if init_h is not None and not isinstance(init_h, str):
             init_h = np.asarray(init_h)[:, cols]
-        res = solve(v[:, cols], replace(params, init_w=init_w, init_h=init_h))
+        res = solve(v[:, cols], replace(params, init_w=init_w, init_h=init_h),
+                    cols)
         if w_ind is not None and init_w is not None:
             init_w = np.array(init_w, np.float32, copy=True)
             if init_w.shape[1] < r:  # the first chunk grew W to full r
@@ -332,7 +343,7 @@ def sparse_nmf_chunked(v, params: SNMFParams, generator=None,
         else:
             init_w = res.w
         w = res.w
-        if save_h:
+        if h_full is not None:
             h_full[:, cols.start:cols.start + res.h.shape[1]] = res.h
         initial_cost += float(res.cost[0])
         initial_div += float(res.div[0])

@@ -26,6 +26,7 @@ cases and names them in a failure message.
 import contextlib
 import dataclasses
 import functools
+import json
 
 import numpy as np
 import pytest
@@ -695,6 +696,85 @@ def test_snmf_frozen_route_on_card(cuda):
     """The frozen-dictionary route of ``sparse_nmf_ed`` against the general
     route's launches by hand, bit for bit, with its launch counts."""
     _snmf_frozen_route_matches_by_hand(cuda)
+
+
+def _memcpy_bytes(prof, tmp_path):
+    """(kind, bytes) of every memcpy in a profiler's exported trace."""
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    return [(e["name"].split()[1], e["args"]["bytes"]) for e in events
+            if e.get("cat") == "gpu_memcpy"]
+
+
+def _infer_irm_keeps_h_on_card(device, tmp_path):
+    """``snmf_infer_irm`` on the card against the route that fetched H and
+    sent it back (``sparse_nmf_chunked(..., save_h=True)``, H to the card,
+    the same products): at one chunk the mask is bit-equal, H is a tensor
+    on the card, the call records ``snmf.mask_to_host`` alone with the
+    counter ``snmf.h_kept_on_device`` at every frame, and no copy of H's
+    size is made either way while the mask's is.  Over three chunks H is
+    gathered on the host bit-equal to the old route's, and the mask, whose
+    products are taken a chunk at a time, within 1e-6 of it."""
+    from drnmf_torch.models.snmf_enhancer import snmf_infer_irm
+    from drnmf_torch.utils.profiling import tally
+
+    rng = np.random.default_rng(9)
+    f, r, n, iters = 33, 12, 3000, 20  # h's bytes (24 x n) differ from F's
+    w = rng.uniform(0.05, 1.0, (f, 2 * r)).astype(np.float32)
+    x = rng.uniform(0.0, 1.0, (f, n)).astype(np.float32)
+    params = snmf.SNMFParams(r=r, cf="ed", sparsity=0.1)
+    infer = snmf.SNMFParams(r=2 * r, cf="ed", sparsity=0.1, init_w=w,
+                            w_update_ind=np.zeros(2 * r, bool),
+                            max_iter=iters)
+    w_t = torch.from_numpy(w).to(device)
+    for frame_chunk in (None, 1000):
+        case = f"frame_chunk={frame_chunk}"
+        gen = torch.Generator(device=device).manual_seed(7)
+        old = snmf.sparse_nmf_chunked(x, infer, generator=gen,
+                                      frame_chunk=frame_chunk, device=device)
+        h_old = torch.from_numpy(old.h).to(device)
+        clean_est = w_t[:, :r] @ h_old[:r]
+        noise_est = w_t[:, r:] @ h_old[r:]
+        irm_old = (clean_est / (1e-9 + clean_est + noise_est)).cpu().numpy()
+
+        gen = torch.Generator(device=device).manual_seed(7)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            irm, h = snmf_infer_irm(x, w, params, max_iter=iters,
+                                    frame_chunk=frame_chunk, generator=gen,
+                                    device=device)
+            torch.cuda.synchronize()
+        got = tally()
+        copies = _memcpy_bytes(prof, tmp_path)
+        chunk = frame_chunk or n
+        assert ("DtoH", 4 * f * chunk) in copies, (case, copies)
+        assert all(b != 4 * 2 * r * n for kind, b in copies
+                   if kind in ("DtoH", "HtoD")), (case, copies)
+        np.testing.assert_array_equal(h.cpu().numpy(), old.h, err_msg=case)
+        spans = {k: v["count"] for k, v in got["spans"].items()}
+        if frame_chunk is None:
+            assert h.device.type == "cuda", case
+            np.testing.assert_array_equal(irm, irm_old, err_msg=case)
+            assert spans == {"snmf.call": 1, "snmf.mask_to_host": 1}, spans
+            assert got["counters"]["snmf.h_kept_on_device"] == n
+        else:
+            assert h.device.type == "cpu", case
+            np.testing.assert_allclose(irm, irm_old, rtol=1e-6, atol=0,
+                                       err_msg=case)
+            assert spans == {"snmf.call": 1, "snmf.mask_to_host": 3,
+                             "snmf.h_to_host": 3}, spans
+            assert "snmf.h_kept_on_device" not in got["counters"]
+
+
+@pytest.mark.cuda
+def test_snmf_infer_irm_on_card(cuda, tmp_path):
+    """The ratio mask from the solve's own H on the card (see
+    ``_infer_irm_keeps_h_on_card``)."""
+    _infer_irm_keeps_h_on_card(cuda, tmp_path)
 
 
 TRAIN_SHAPES = [  # (B, T, F, r, K)

@@ -426,6 +426,64 @@ def test_snmf_infer_irm_matches_jax(rng):
     np.testing.assert_allclose(h, h_j, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("frame_chunk", [None, 20])
+def test_snmf_infer_irm_builds_the_mask_from_the_solves_h(rng, monkeypatch,
+                                                         frame_chunk):
+    """``snmf_infer_irm`` at one chunk and over three (20 frames of 50)
+    against the route that fetched H and sent it back: ``sparse_nmf_chunked
+    (..., save_h=True)``, H to the device, the same products.  The mask is
+    bit-equal, and H equal; with one chunk H is the very tensor the solve
+    left on the device.  ``save_h=True`` and ``save_h=False`` still give
+    numpy W and H, and None for H."""
+    f, r, n, iters = 16, 4, 50, 30
+    w = rng.uniform(0.05, 1.0, (f, 2 * r)).astype(np.float32)
+    x = rng.uniform(0.0, 1.0, (f, n)).astype(np.float32)
+    params = tsnmf.SNMFParams(r=r, cf="ed", sparsity=0.1)
+    infer = tsnmf.SNMFParams(r=2 * r, cf="ed", sparsity=0.1, init_w=w,
+                             w_update_ind=np.zeros(2 * r, bool),
+                             max_iter=iters)
+
+    def generator():
+        return torch.Generator().manual_seed(7)
+
+    old = tsnmf.sparse_nmf_chunked(x, infer, generator=generator(),
+                                   frame_chunk=frame_chunk, device="cpu")
+    assert isinstance(old.w, np.ndarray) and isinstance(old.h, np.ndarray)
+    h_old = torch.from_numpy(old.h)
+    w_t = torch.from_numpy(w)
+    clean_est = w_t[:, :r] @ h_old[:r]
+    noise_est = w_t[:, r:] @ h_old[r:]
+    irm_old = (clean_est / (1e-9 + clean_est + noise_est)).numpy()
+
+    solved = []
+    real = tsnmf.sparse_nmf
+
+    def spy(*args, **kwargs):
+        solved.append(real(*args, **kwargs))
+        return solved[-1]
+
+    monkeypatch.setattr(tsnmf, "sparse_nmf", spy)
+    irm, h = snmf_infer_irm(x, w, params, max_iter=iters,
+                            frame_chunk=frame_chunk, generator=generator(),
+                            device="cpu")
+    assert len(solved) == (1 if frame_chunk is None else 3)
+    assert all(isinstance(s.h, torch.Tensor) for s in solved)
+    assert isinstance(irm, np.ndarray) and irm.shape == (f, n)
+    np.testing.assert_array_equal(irm, irm_old)
+    assert isinstance(h, torch.Tensor) and h.shape == (2 * r, n)
+    np.testing.assert_array_equal(h.numpy(), old.h)
+    assert (h is solved[0].h) == (frame_chunk is None)
+    monkeypatch.undo()
+
+    dropped = tsnmf.sparse_nmf_chunked(x, infer, generator=generator(),
+                                       frame_chunk=frame_chunk,
+                                       save_h=False, device="cpu")
+    assert dropped.h is None and isinstance(dropped.w, np.ndarray)
+    np.testing.assert_array_equal(dropped.w, old.w)
+    np.testing.assert_array_equal(dropped.cost, old.cost)
+    np.testing.assert_array_equal(dropped.div, old.div)
+
+
 def test_pass_wrappers_reject_malformed_operands(rng):
     v, w, h = (T(a) for a in _nmf_inputs(rng, 9, 4, 20))
     for bad in ("dtype", "contiguity", "shape", "rank", "sparsity", "bool",

@@ -197,6 +197,8 @@ def test_enhance_signals_spans_and_frame_counters(rng):
 
 
 def test_snmf_infer_irm_spans(rng):
+    """One chunk: ``h`` never leaves the device, so the call records the
+    mask's copy alone, and the counter holds every frame."""
     r = 4
     w = rng.uniform(0.05, 1.0, (F, 2 * r)).astype(np.float32)
     x = rng.uniform(0.0, 1.0, (F, 50)).astype(np.float32)
@@ -205,13 +207,33 @@ def test_snmf_infer_irm_spans(rng):
         irm, h = snmf_infer_irm(x, w, params, max_iter=5, device="cpu")
     assert irm.shape == (F, 50) and h.shape == (2 * r, 50)
     got, rec = tally(), _records()
-    names = ("snmf.h_to_host", "snmf.h_to_device", "snmf.mask_to_host")
     assert {k: v["count"] for k, v in got["spans"].items()} == {
-        "snmf.call": 1, **{n: 1 for n in names}}
+        "snmf.call": 1, "snmf.mask_to_host": 1}
     (call,) = rec["snmf.call"]
-    assert all(rec[n][0].call == call.call for n in names)
-    assert rec["snmf.h_to_device"][0].parent is call
+    assert rec["snmf.mask_to_host"][0].call == call.call
     assert rec["snmf.mask_to_host"][0].parent is call
+    assert got["counters"] == {"snmf.h_kept_on_device": 50}
+
+
+def test_snmf_infer_irm_spans_over_chunks(rng):
+    """Three chunks (20 frames of 50): each chunk's ``h`` is fetched once,
+    as ``snmf.h_to_host``, and its mask once; no frame counts as kept."""
+    r = 4
+    w = rng.uniform(0.05, 1.0, (F, 2 * r)).astype(np.float32)
+    x = rng.uniform(0.0, 1.0, (F, 50)).astype(np.float32)
+    params = SNMFParams(r=2 * r, sparsity=0.1, max_iter=5)
+    with _profile():
+        irm, h = snmf_infer_irm(x, w, params, max_iter=5, frame_chunk=20,
+                                device="cpu")
+    assert irm.shape == (F, 50) and h.shape == (2 * r, 50)
+    got, rec = tally(), _records()
+    names = ("snmf.h_to_host", "snmf.mask_to_host")
+    assert {k: v["count"] for k, v in got["spans"].items()} == {
+        "snmf.call": 1, **{n: 3 for n in names}}
+    (call,) = rec["snmf.call"]
+    for n in names:
+        assert all(s.call == call.call and s.parent is call for s in rec[n])
+    assert got["counters"] == {}
 
 
 def test_train_step_spans(rng):
