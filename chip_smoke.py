@@ -6,6 +6,16 @@ toolkit:
 
     python3 chip_smoke.py
 
+The kernels against their plain versions over grids of shapes are the
+card tests (``python -m pytest --noconftest -p no:cacheprovider
+tests/test_torch_cuda.py -q``).  This script times the kernels at the
+paths' own shapes, keeps only the checks that hold at those shapes, and
+drives every path that no benchmark cell runs.  Each bound is the
+benchmark's (``benchmark/yardstick/``: one dense TF32 pass or the bytes of
+the work the inputs need), beside two ceilings the yardstick does not
+count (``bounds_ms``); the frozen SNMF route's bounds are this script's
+own count until the yardstick counts that route.
+
 Phases, each printing one JSON line:
 
 1. device  -- requires CUDA; prints the card's name and power limit.
@@ -15,72 +25,44 @@ Phases, each printing one JSON line:
               (ops/csrc/drnmf_scan_factored_bwd.cu) and B4/B5
               (ops/csrc/snmf_mu.cu) with nvcc, one process each, in
               parallel; prints ptxas's register and spill counts.
-3. kernel  -- B1 against its plain PyTorch version on the card, at a small
-              odd shape and at the flagship widths over 64 steps.
-   interleave_kernel -- B2 against the same plain version and against B1
-              (within KERNEL_RTOL/ATOL: they sum in different orders) at an
-              odd batch, at the flagship widths and at the streaming shape
-              (64 rows, 16 steps).
-   dense_kernel -- B3 against its plain version with u1, uk, S and W drawn
-              at a scale where every term moves the output: a ragged shape,
-              K = 1 (dummy S, zero uk, odd 2r), a masked tail, the flagship
-              widths at a batch of 256, of 64 and of 1; logs B3's plan.
-   train_kernel -- B1 with every layer kept (``keep_layers``: its top
-              output bit-equal to B1 without the flag, its layer stack
-              against the plain loop's) and the backward kernel against its
-              plain version on that stack, at a small ragged shape with
-              K = 5, odd F and 2r, K = 1 at the flagship widths, the
-              flagship at 32 rows and at one row over 64 steps, masked
-              tails and a masked step mid-sequence; a bit-equal repeat,
-              padded columns zero, and rows 0-15, 0 and 31 alone against
-              the same rows of the 32-row call, bit for bit.  At the
-              flagship (every layer active there) the backward's streamed
-              instance too, forced, against the plain version and bit for
-              bit against the plan's.
-   snmf_kernel -- B4 and B5 against their plain versions (and one whole MU
-              iteration with half of W frozen) at the JAX hold-out shape, at
-              shapes that cut every tile (n below one tile, n = 1, 2, 3 mod 4,
-              m = 8, 257 and 264 = 3 x 88, r not a multiple of 8, sparsity
-              0) and at m=257, 2r=2000, n=4,099.
-4. main    -- the flagship model (K=5, 2r=2000, F=257; random dictionary from
+3. main    -- the flagship model (K=5, 2r=2000, F=257; random dictionary from
               seed 7654) through ``python -m drnmf_torch.enhance_wav`` on a
               few synthetic wavs, then ``enhance_signals`` on 256 signals of
               8 s (2 warm-up calls, 3 timed); B1's launch count must rise.
-5. parity  -- the whole path against the same path with the recurrence
-              forced to the plain version, on 4 signals of 2 s.
-6. stages  -- one warm ``enhance_signals`` call of 256 x 8 s, stage by
+4. stages  -- one warm ``enhance_signals`` call of 256 x 8 s, stage by
               stage (its ``lap`` hook, a synchronisation at each stage).
    times   -- B1, B2 and their plain version at the main path's shapes
               (B=256, T=1021) and at the streaming shape (64 x 16), B1 and
               B2 at one row (1 x 1021), and the end-to-end real-time factor.
               For each of B1 and B2: its plan and grid syncs a call at each
-              shape, ms a step, useful TFLOP/s, its bound (one TF32 pass or
-              the bytes, ``factored_bounds``) beside what three TF32 passes
-              and the f32 CUDA cores could reach and the share of each
-              (fails above 100% of the first, for B2 also of the second),
-              and the step split by layer; B1's cost of one grid sync at
-              each shape's grid (a kernel of bare syncs).  A bit-equal
+              shape, ms a step, useful TFLOP/s, its bound beside what three
+              TF32 passes and the f32 CUDA cores could reach and the share
+              of each (fails above 100% of the first, for B2 also of the
+              second), and the step split by layer; B1's cost of one grid
+              sync at each shape's grid (a kernel of bare syncs).  At
+              256 x 1021, both against the plain version, a bit-equal
               repeat of each; rows 0-63 as a 64-row call and rows 0, 63,
               255 alone equal to the same rows of the 256-row call bit for
               bit (B1) or within the tolerance, bit equality reported (B2);
-              B2 against B1 at every shape.
-7. dense_main -- a dense-U flagship model (the flagship parameters with
+              B2 against B1 at every shape; B1 and B2 against the plain
+              version at 64 x 16 and 1 x 1021 too.
+5. dense_main -- a dense-U flagship model (the flagship parameters with
               log_U1/log_Uk perturbed from a seed, so the rank-one fold does
               not hold; U trainable in its YAML) through ``enhance_wav`` and
               ``enhance_signals`` on 8 s signals: B3 launches once per
               enhance call, B1 never.
-   dense_parity -- that path against the path on B3's plain version.
    dense_times -- B3 and its plain version at that shape and at the
               streaming shape (64 x 16), B3 at one row (1 x 1021); for each
               B3's plan, grid syncs a call, ms a step, useful TFLOP/s, its
-              bound (one TF32 pass or the bytes, the weights past the L2
-              counted again every step) beside what three TF32 passes and
-              the f32 CUDA cores could reach, the share of each (fails
-              above 100% of the first two), and the step split by layer;
-              a bit-equal repeat; rows 0-63 as a 64-row call and rows 0,
-              63, 255 alone against the same rows of the batch (bit
-              equality reported, the kernel tolerance held).
-8. stream  -- ``StreamingEnhancer`` (64-frame blocks) on one 8 s signal fed
+              bound (the weights past the L2 counted again every step)
+              beside what three TF32 passes and the f32 CUDA cores could
+              reach, the share of each (fails above 100% of the first two),
+              and the step split by layer; at the main shape B3 against its
+              plain version, a bit-equal repeat, rows 0-63 as a 64-row call
+              and rows 0, 63, 255 alone against the same rows of the batch
+              (bit equality reported, the kernel tolerance held); B3 against
+              its plain version at 64 x 16 and 1 x 1021 too.
+6. stream  -- ``StreamingEnhancer`` (64-frame blocks) on one 8 s signal fed
               in odd chunks, frozen-U (B1) and dense-U (B3), against
               ``enhance_signals`` on the card.
    multi   -- ``MultiStreamEnhancer``, 64 streams of 16-frame blocks under a
@@ -92,7 +74,7 @@ Phases, each printing one JSON line:
               threads sending 3 s each in protocol chunks; replies against
               offline.  Every socket has a timeout.
    paced   -- ``paced_load`` for 5 s at 64 streams; prints ``paced_stats``.
-9. train   -- the flagship model through ``drnmf_torch.train.train_model``
+7. train   -- the flagship model through ``drnmf_torch.train.train_model``
               at the reference schedule (B=32, T=500, Adam lr 1e-3) on
               synthetic noisy/clean magnitudes (``synth_magnitudes``, every
               fourth sequence padded past an early end): 2 epochs of 4
@@ -111,15 +93,13 @@ Phases, each printing one JSON line:
               and the backward kernel's device ms, the device's idle
               share), and the forward, the backward kernel (and its plain
               version, its error at this shape) and the weight-gradient
-              products each timed alone, each beside its bound
-              (``train_bounds``) and the share of it; the backward's plan
-              (instance, W, stripes, grid, shared bytes, grid syncs a
-              step), us a step at 32 rows and at one row (fails where a
-              share reads over 100%); heads, loss and Adam are the profiled
-              device time left.  The trained model then enhances 4
-              signals through B1 against its plain path
-              (``train_parity``, the parity tolerance).
-10. pipeline -- the experiment pipeline through its command line
+              products each timed alone, each beside its bound (the
+              yardstick's ``train_bounds``) and the share of it; the
+              backward's plan (instance, W, stripes, grid, shared bytes,
+              grid syncs a step), us a step at 32 rows and at one row
+              (fails where a share reads over 100%); heads, loss and Adam
+              are the profiled device time left.
+8. pipeline -- the experiment pipeline through its command line
               (``drnmf_torch.cli.main`` in this process, the test split
               enhanced and, for the flagship, scored) on a synthetic
               corpus under
@@ -154,7 +134,7 @@ Phases, each printing one JSON line:
               real-time factor of predict plus reconstruct, the scoring
               RTF, the overall scores, the launches by run and the LSTM's
               ms a step.
-11. score  -- ``metrics.engine.score_all_packed`` on the card (int16
+9. score  -- ``metrics.engine.score_all_packed`` on the card (int16
               buffers, align "guard", PESQ on), one line for each of (a)
               the pipeline's enhanced test split (96 files, read as PCM16
               by the native reader), (a') the same files' noisy input
@@ -172,37 +152,35 @@ Phases, each printing one JSON line:
               for (a) and (a') PESQ against the float64 host model and
               STOI against the per-file path on 8 files; device ms by
               kernel group (FFTs, Cholesky, gathers) and the idle share of
-              one warm call (``profile_split``), and the device ms of the
+              one warm call (``profiled``), and the device ms of the
               parts of one bucket's pass (``score_ops``: the FFT of the
               rows, the SDR, the factorization alone, the delay, PESQ and
               its smoothing loop, STOI and its segment gather).
-12. snmf_recipe -- the dictionary stage through ``train_snmf`` at full width
+10. snmf_recipe -- the dictionary stage through ``train_snmf`` at full width
               (r=1000, 2r=2000, F=257) on 139 x 8 s of synthetic clean and
               noisy frames (139,695 frames: stage 1 in one chunk, stage 2 in
               two), 10 iterations a chunk; B4/B5 launch once per iteration;
               the dictionary then initialises the flagship model, which
               enhances 4 signals through B1.
-13. snmf_infer -- ``snmf_infer_irm`` (W frozen, 200 iterations, the
+11. snmf_infer -- ``snmf_infer_irm`` (W frozen, 200 iterations, the
               frozen route: one B4 and one B5 launch an iteration) on
-              16 x 8 s; the frozen route's passes (``snmf_mu_frozen_*``:
-              W^T v, lam, the H update, B5 and the lam it leaves) against
-              their plain versions at its frame count and dictionary.
-14. snmf_parity -- ``sparse_nmf_ed`` with B4/B5 against the same solver on
+              16 x 8 s.
+12. snmf_parity -- ``sparse_nmf_ed`` with B4/B5 against the same solver on
               the plain passes, 10 iterations at 257 x 16,080 x 2000: half
               of W frozen (the general route), then all of it (the frozen
               route).
-15. snmf_times -- B4, B5, their plain versions and the bare cuBLAS products
+13. snmf_times -- B4, B5, their plain versions and the bare cuBLAS products
               at bench.py's SNMF shape (257 x 140,000, 2r=2000): ms, useful
-              TFLOP/s, the bound (one TF32 tensor-core pass or the bytes)
-              beside what three TF32 passes and the f32 CUDA cores could
-              reach, a bit-equal repeat of both, their times at the recipe's
-              unpadded 139,695 frames, one iteration split by kernel, and the
-              end-to-end ``sparse_nmf`` iteration rate; the frozen route's
-              passes against their plain versions, each timed beside its
-              bound, and one iteration of it (W^T v and lam carried over)
-              beside the general route's and beside its bound, split by
-              kernel.
-16. parallel -- the multi-rank paths (``drnmf_torch.parallel``): two ranks
+              TFLOP/s, the bound beside what three TF32 passes and the f32
+              CUDA cores could reach, B4/B5 against their plain versions (sums
+              over 140,000 frames) and a bit-equal repeat of both, the frozen
+              route's passes bit-equal to the general ones, their times at
+              the recipe's unpadded 139,695 frames, one iteration split by
+              kernel, and the end-to-end ``sparse_nmf`` iteration rate; the
+              frozen route's passes each timed beside its bound, and one
+              iteration of it (W^T v and lam carried over) beside the
+              general route's and beside its bound, split by kernel.
+14. parallel -- the multi-rank paths (``drnmf_torch.parallel``): two ranks
               of one gloo group sharing the card (``run_ranks``; NCCL
               refuses two ranks of one communicator on one device), every
               collective with a timeout.  (a) ``parallel_fit``: the flagship
@@ -230,7 +208,7 @@ Phases, each printing one JSON line:
               files (2 steps; the losses against one process's), the
               layout and backend line of each, and ``--tp 2`` on the LSTM
               refused.
-17. pipelined -- the pipelined recurrences at the flagship widths, ranks of
+15. pipelined -- the pipelined recurrences at the flagship widths, ranks of
               one gloo group sharing the card (``Mesh.shift`` stages each
               carry through pinned host memory).  ``seqpipe``: SEQ_RANKS
               ranks, B=64, T=1020 (noisy magnitudes, every fourth row
@@ -244,7 +222,7 @@ Phases, each printing one JSON line:
               the five ranks each write their FSDP block of the flagship
               parameters (``save_checkpoint_sharded``), and this process
               loads them whole, bit-equal.
-18. tooling -- (a) the pipeline phase's cached CLI rerun alone, with
+16. tooling -- (a) the pipeline phase's cached CLI rerun alone, with
               ``--trace`` and with ``--dp 2 --trace``: each trace file
               parses, holds the ``StageTimer`` stage names, and rank 0's
               holds B1's kernel symbol (rank 0 alone predicts in a cached
@@ -295,12 +273,14 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, dense TF32 on
-# the tensor cores, HBM3 bandwidth
+from benchmark.yardstick import bounds as yardstick
+from benchmark.yardstick import dense_bounds as yardstick_dense
+from benchmark.yardstick import trace
+from benchmark.yardstick.peaks import PEAK_BYTES_PER_S, PEAK_TF32_FLOPS
+
+# H100 SXM f32 peak on the CUDA cores (NVIDIA data sheet); the yardstick
+# keeps the dense TF32 and HBM3 peaks
 PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_BYTES_PER_S = 3.35e12
-L2_BYTES = 50 * 2**20  # H100 SXM L2 (50 MiB)
 FS = 16000
 N_FFT, HOP = 512, 128
 # B1 against its plain version: f32 on both sides with a different
@@ -317,10 +297,6 @@ SNMF_RTOL = 1e-4
 SNMF_SIGNALS, SNMF_R, SNMF_ITERS = 139, 1000, 10
 INFER_SIGNALS, INFER_ITERS = 16, 200
 SNMF_TIMES_SHAPE = (257, 2000, 140_000)  # bench.py::bench_snmf's m, 2r, n
-# whole path: a mask error within the kernel tolerance (<= 1e-4) moves a
-# waveform by at most about 2e-4 of its peak (four overlapping frames,
-# synthesis scale 0.5): -74 dB, far inside the 0.1 dB SDR budget
-WAVE_RTOL_OF_PEAK = 2e-4
 # streaming against offline on the card: the same kernels on the same rows
 # (their per-row arithmetic does not depend on the batch), so what differs
 # is cuFFT's batching and the overlap-add's order (a block's frames first,
@@ -328,6 +304,9 @@ WAVE_RTOL_OF_PEAK = 2e-4
 STREAM_RTOL, STREAM_ATOL = 1e-4, 1e-5
 STREAMS, MULTI_BLOCK = 64, 16  # the server's default block (serve.py)
 SOCKET_TIMEOUT_S = 120.0
+# a profiled window (``profiled``) spans calls for at least PROFILE_S; the
+# profiler's session stays open PROFILE_GRACE_S past it
+PROFILE_S, PROFILE_GRACE_S = 1.0, 0.2
 # training at the reference schedule (BASELINE.md, "Train maxlen" and
 # "DR-NMF training": Adam lr 1e-3, clipnorm 0, batch 32, 500 frames a
 # sequence), cut to 2 epochs of 4 batches and 32 validation sequences
@@ -515,33 +494,6 @@ def scan_operands(config, params, x):
                           step_mask_from_input(x, config.mask_value))
 
 
-def dense_operands(rng, bsz, t_len, f, n2r, k_layers, held_from=None):
-    """Operands of B3 on the card at a scale where every term moves the
-    output: u1, uk and S uniform in [0, 1/2r] (so the state stays bounded),
-    W with unit columns over 10, a small negative bias, h0 in [0, 0.5].
-    ``held_from``: the middle row is masked from that step on.  K == 1
-    takes a zero uk and a one-matrix S dummy, as the model passes them."""
-    import torch
-
-    def uniform(hi, *shape):
-        return torch.from_numpy(
-            rng.uniform(0.0, hi, shape).astype(np.float32)).cuda()
-
-    x = uniform(1.0, bsz, t_len, f)
-    step_mask = torch.ones((bsz, t_len), dtype=torch.bool, device="cuda")
-    if held_from is not None:
-        step_mask[bsz // 2, held_from:] = False
-    w = uniform(1.0, k_layers, f, n2r) + 0.05
-    w = w / (w * w).sum(dim=1, keepdim=True).sqrt() / 10.0
-    uk = uniform(1.0 / n2r, n2r, n2r)
-    if k_layers == 1:
-        uk = torch.zeros_like(uk)
-    return (x, step_mask, uniform(0.5, bsz, n2r),
-            uniform(1.0 / n2r, n2r, n2r), uk,
-            uniform(1.0 / n2r, max(1, k_layers - 1), n2r, n2r), w,
-            -uniform(0.05, k_layers, n2r))
-
-
 def reset_launches():
     """Set every kernel's launch count to 0 (just before a path is driven)."""
     from drnmf_torch.ops import drnmf_scan, snmf_mu
@@ -580,43 +532,51 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def factored_flops(args):
-    """Useful flops of one B1 or B2 call on these inputs: 2*F*2r*(2K-1) per
-    valid (unmasked) row-step."""
-    f, n2r, k_layers = args[0].shape[2], args[2].shape[-1], args[7].shape[0]
-    return 2 * f * n2r * (2 * k_layers - 1) * int(args[1].sum().item())
+def bounds_ms(entry):
+    """A yardstick entry (``flops``, ``bytes``, ``bound_s``, ``bound_by``:
+    one dense TF32 tensor-core pass or the bytes at the HBM rate) in
+    milliseconds, with the two ceilings the yardstick does not count:
+    ``bound_3xtf32_ms``, three TF32 passes a term (the price of the
+    f32-class accuracy of B2 to B5), and ``bound_f32_cuda_cores_ms``, the
+    f32 rate of the CUDA cores (B1's arithmetic)."""
+    t_bytes = entry["bytes"] / PEAK_BYTES_PER_S
+    return {"flops": entry["flops"], "bytes": entry["bytes"],
+            "bound_ms": 1e3 * entry["bound_s"], "bound_by": entry["bound_by"],
+            "bound_3xtf32_ms": 1e3 * max(3 * entry["flops"] / PEAK_TF32_FLOPS,
+                                         t_bytes),
+            "bound_f32_cuda_cores_ms": 1e3 * max(
+                entry["flops"] / PEAK_F32_FLOPS, t_bytes)}
 
 
-def bounds_of(flops, nbytes):
-    """Bounds of work of ``flops`` and ``nbytes``: ``bound_ms`` /
-    ``bound_by``, the larger of one dense TF32 tensor-core pass and the
-    bytes; ``bound_3xtf32_ms`` with three TF32 passes a term;
-    ``bound_f32_cuda_cores_ms`` at the f32 rate of the CUDA cores."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_TF32_FLOPS
-    return {"flops": flops, "bytes": nbytes,
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "bound_3xtf32_ms": 1e3 * max(3 * t_ops, t_bytes),
-            "bound_f32_cuda_cores_ms": 1e3 * max(flops / PEAK_F32_FLOPS,
-                                                 t_bytes)}
+def scan_sizes(args):
+    """(rows, steps, valid row-steps, F, 2r, K) of the recurrence's
+    operands: sizes from the tensors, the valid (unmasked) row-steps from
+    the step mask."""
+    rows, steps, f = args[0].shape
+    return (rows, steps, int(args[1].sum().item()), f, args[2].shape[-1],
+            args[-1].shape[0])
 
 
-def factored_bounds(args):
-    """Bounds of one B1 or B2 call on these inputs (they compute the same
-    function), in ``b3_bounds``' form.  The bytes: each input the function
-    reads (K == 1 reads no dkT) once and the output once; the weight stack
-    fits the L2, so no step reads it from HBM again.  ``bound_ms`` /
-    ``bound_by``: the larger of one dense TF32 tensor-core pass and the
-    bytes; ``bound_3xtf32_ms``: with the three TF32 passes a term that
-    B2's f32-class accuracy costs; ``bound_f32_cuda_cores_ms``: with the
-    f32 rate of the CUDA cores, the bound of B1's f32 arithmetic."""
-    bsz, t_len, _ = args[0].shape
-    n2r, k_layers = args[2].shape[-1], args[7].shape[0]
-    read = [a for i, a in enumerate(args) if k_layers > 1 or i != 6]
-    nbytes = sum(a.numel() * a.element_size() for a in read)
-    nbytes += bsz * t_len * n2r * 4  # output
-    return bounds_of(factored_flops(args), nbytes)
+def train_parts(args, n_trainable):
+    """``bounds_ms`` of the parts of one train step on B1's operands
+    ``args`` (the yardstick's ``train_bounds``: forward, backward,
+    weight_grads, heads_loss_adam)."""
+    rows, steps, valid, f, n2r, k = scan_sizes(args)
+    return {part: bounds_ms(entry) for part, entry in yardstick.train_bounds(
+        rows, steps, f, n2r, k, valid, n_trainable).items()}
+
+
+def factored_call_bounds(args):
+    """``bounds_ms`` of one B1 or B2 call on these operands (they compute
+    the same function): the yardstick's ``factored_bounds``."""
+    rows, _, valid, f, n2r, k = scan_sizes(args)
+    return bounds_ms(yardstick.factored_bounds(rows, valid, f, n2r, k))
+
+
+def dense_call_bounds(args):
+    """``bounds_ms`` of one B3 call on these operands: the yardstick's
+    ``dense_bounds``."""
+    return bounds_ms(yardstick_dense.dense_bounds(*scan_sizes(args)))
 
 
 BOUND_KEYS = ("bound_ms", "bound_by", "bound_3xtf32_ms",
@@ -629,36 +589,6 @@ def shares(bounds, ms):
             "share_of_3xtf32_bound": bounds["bound_3xtf32_ms"] / ms,
             "share_of_f32_cuda_cores_bound":
                 bounds["bound_f32_cuda_cores_ms"] / ms}
-
-
-def b3_flops(args):
-    """Useful flops of one B3 call on these inputs: 2*(2r)^2*(2K-1) +
-    2*F*2r*K per valid (unmasked) row-step."""
-    f, n2r, k_layers = args[0].shape[2], args[2].shape[-1], args[6].shape[0]
-    return ((2 * n2r * n2r * (2 * k_layers - 1) + 2 * f * n2r * k_layers)
-            * int(args[1].sum().item()))
-
-
-def b3_bounds(args):
-    """Bounds of one B3 call on these inputs, in ``snmf_bounds``' form.
-    The bytes: each input the function reads (K == 1 reads neither uk nor
-    the S dummy) once, the output once, and the weight stack's bytes past
-    the L2 once more at every step after the first (they fit no cache, so
-    each step reads them from HBM again).  ``bound_ms``/``bound_by``: the
-    larger of one dense TF32 tensor-core pass and the bytes;
-    ``bound_3xtf32_ms``: with the three TF32 passes a term that the
-    kernel's f32-class accuracy costs; ``bound_f32_cuda_cores_ms``: with
-    the f32 rate of the CUDA cores, the bound B3 had before it ran on the
-    tensor cores (no longer a bound of it)."""
-    bsz, t_len, _ = args[0].shape
-    n2r, k_layers = args[2].shape[-1], args[6].shape[0]
-    flops = b3_flops(args)
-    read = [a for i, a in enumerate(args) if k_layers > 1 or i not in (4, 5)]
-    weights = sum(a.numel() * a.element_size() for a in read[3:])
-    nbytes = sum(a.numel() * a.element_size() for a in read)
-    nbytes += bsz * t_len * n2r * 4  # output
-    nbytes += (t_len - 1) * max(0, weights - L2_BYTES)
-    return {**bounds_of(flops, nbytes), "weight_bytes": weights}
 
 
 def b3_plan(bsz, f, n2r):
@@ -680,7 +610,7 @@ def b3_plan_and_rates(args, ms):
 
     bsz, t_len, f = args[0].shape
     n2r, k_layers = args[2].shape[-1], args[6].shape[0]
-    bounds = b3_bounds(args)
+    bounds = dense_call_bounds(args)
 
     def first_layers(k):
         cut = list(args)
@@ -695,13 +625,10 @@ def b3_plan_and_rates(args, ms):
             "syncs_per_call": 2 * k_layers * t_len, "ms": ms,
             "ms_per_step": ms / t_len,
             "useful_tflops": bounds["flops"] / ms / 1e9,
-            **{key: bounds[key] for key in (
-                "bound_ms", "bound_by", "bound_3xtf32_ms",
-                "bound_f32_cuda_cores_ms", "bytes", "weight_bytes")},
-            "share_of_bound": bounds["bound_ms"] / ms,
-            "share_of_3xtf32_bound": bounds["bound_3xtf32_ms"] / ms,
-            "share_of_f32_cuda_cores_bound":
-                bounds["bound_f32_cuda_cores_ms"] / ms,
+            **{key: bounds[key] for key in BOUND_KEYS + ("bytes",)},
+            "weight_bytes": yardstick_dense.dense_weight_bytes(f, n2r,
+                                                               k_layers),
+            **shares(bounds, ms),
             "ms_per_step_first_layer": k1 / t_len,
             "ms_per_step_each_later_layer": (k2 - k1) / t_len}
 
@@ -748,7 +675,7 @@ def b1_plan_and_rates(args, ms):
     sync_ms = cuda_ms(lambda: codes.append(
         lib.drnmf_grid_sync_probe(syncs, plan.grid, stream)), 3)
     check(not any(codes), f"the grid-sync probe failed: {codes}")
-    bounds = factored_bounds(args)
+    bounds = factored_call_bounds(args)
     return {"plan": plan._asdict(), "syncs_per_call": syncs, "ms": ms,
             "ms_per_step": ms / t_len,
             "useful_tflops": bounds["flops"] / ms / 1e9,
@@ -779,7 +706,7 @@ def b2_plan_and_rates(args, ms):
     n2r, k_layers = args[2].shape[-1], args[7].shape[0]
     plan = b2_plan(bsz, f, n2r)
     per_step = 1 + 3 * (k_layers - 1)
-    bounds = factored_bounds(args)
+    bounds = factored_call_bounds(args)
     return {"plan": plan._asdict(), "syncs_per_call": 1 + t_len * per_step,
             "ms": ms, "ms_per_step": ms / t_len,
             "useful_tflops": bounds["flops"] / ms / 1e9,
@@ -811,41 +738,23 @@ def close_to(got, want):
             bool((diff <= STREAM_ATOL + STREAM_RTOL * np.abs(want)).all()))
 
 
-def snmf_bounds(m, r, n):
-    """{pass: bounds} of one B4 and one B5 call on these shapes, on the
-    general route (``pass1``, ``pass2``) and on the frozen one
-    (``frozen_pass1``, ``frozen_pass2``; ``frozen_iter`` for both).  The
-    work is 6 (B4) or 1 (B5, and each frozen pass) products of 2*m*r*n
-    flops, and each input read once and each output written once at the
-    HBM rate.  ``bound_ms``/``bound_by``:
-    the least time the card could take, the larger of one dense TF32
-    tensor-core pass and the bytes; ``bound_3xtf32_ms``: the same with the
-    three TF32 passes a term that the kernels' f32-class accuracy costs;
-    ``bound_f32_cuda_cores_ms``: with the f32 rate of the CUDA cores, the
-    bound the kernels had before they ran on the tensor cores."""
-    inputs = 4 * (m * n + r * n + m * r)  # v, h, w
-    out = {}
-    for name, products, nbytes in (
-            ("pass1", 6, inputs + 4 * (r * n + 2 * m * r + 1)),
-            ("pass2", 1, inputs + 4),
+def frozen_snmf_bounds(m, r, n):
+    """``bounds_ms`` of the frozen SNMF route on (m, r, n): one B4
+    (``frozen_pass1``) and one B5 (``frozen_pass2``) call, one product of
+    2*m*r*n flops each, and a whole iteration (``frozen_iter``, both);
+    each input read once and each output written once.  This script's own
+    count until the yardstick counts the route (ROADMAP G.9: its
+    ``snmf_bounds`` charges B4 six products an iteration)."""
+    return {name: bounds_ms(yardstick.bounds_of(
+        products * 2 * m * r * n, yardstick.F32 * words))
+        for name, products, words in (
             # h, W^T v, lam and W in; h' and a sum out
-            ("frozen_pass1", 1, 4 * (3 * r * n + m * n + m * r + 1)),
+            ("frozen_pass1", 1, 3 * r * n + m * n + m * r + 1),
             # h, v and W in; lam and a sum out
-            ("frozen_pass2", 1, 4 * (r * n + 2 * m * n + m * r + 1)),
-            # one iteration of the frozen route, B4's W^T lam and B5's
-            # W h': h, W^T v, lam, v and W in; h', lam and two sums out
-            ("frozen_iter", 2, 4 * (3 * r * n + 3 * m * n + m * r + 2))):
-        flops = products * 2 * m * r * n
-        t_bytes = nbytes / PEAK_BYTES_PER_S
-        t_ops = flops / PEAK_TF32_FLOPS
-        out[name] = {
-            "flops": flops,
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "bound_3xtf32_ms": 1e3 * max(3 * t_ops, t_bytes),
-            "bound_f32_cuda_cores_ms": 1e3 * max(flops / PEAK_F32_FLOPS,
-                                                 t_bytes)}
-    return out
+            ("frozen_pass2", 1, r * n + 2 * m * n + m * r + 1),
+            # B4's W^T lam and B5's W h': h, W^T v, lam, v and W in; h',
+            # lam and two sums out
+            ("frozen_iter", 2, 3 * r * n + 3 * m * n + m * r + 2))}
 
 
 def snmf_operands(rng, m, r, n):
@@ -862,125 +771,49 @@ def snmf_operands(rng, m, r, n):
             w / (w * w).sum(dim=0, keepdim=True).sqrt())
 
 
-def snmf_errors(v, h, w, sparsity):
-    """B4 and B5 against their plain versions on the same inputs:
-    {output: (max abs err, max abs err / max |plain|)}.  These launches do
-    not count as the main path's."""
+def profiled(fn, top=10):
+    """Warm calls of ``fn`` under ``torch.profiler``, repeated for at least
+    PROFILE_S inside a ``trace.WINDOW`` range that ends in a
+    synchronisation, reduced by the yardstick's ``trace.summarize`` and
+    divided by the calls: (``calls``, ``window_s``, ``busy_s`` (None where
+    no device operation was traced: not measured), ``idle_share`` and the
+    ``top`` largest ``device_ops`` and ``idle_gaps`` as [name, seconds a
+    call]; every device operation of all the calls in the window as
+    (start_us, end_us, name), for ``trace.device_seconds``).
+
+    The profiler's device timestamps drift from its host clock as a
+    process ages (about 1e-4 on an H100: 4 ms later after 48 s), and it
+    drops the device operations past the end of its session: a window of
+    one call of a few ms lost every kernel a few minutes into this script.
+    So the window spans many calls, and the session stays open
+    PROFILE_GRACE_S past it; what the drift still shifts past the window's
+    end (a few ms of PROFILE_S) is not counted."""
     import torch
-    from drnmf_torch.ops import snmf_mu
-
-    out = snmf_mu.snmf_mu_pass1(v, h, w, sparsity)
-    ref = snmf_mu.snmf_mu_pass1_reference(v, h, w, sparsity)
-    pairs = list(zip(("h_new", "a", "b", "sp_sum"), out, ref))
-    pairs.append(("div", snmf_mu.snmf_mu_pass2(v, out[0], w),
-                  snmf_mu.snmf_mu_pass2_reference(v, out[0], w)))
-    torch.cuda.synchronize()
-    errs = {}
-    for name, o, rf in pairs:
-        diff = (o - rf).abs().max().item()
-        errs[name] = (diff, diff / max(rf.abs().max().item(), 1e-30))
-    return errs
-
-
-def snmf_frozen_errors(v, h, w, sparsity):
-    """The frozen route's passes against their plain versions, each side on
-    a state of its own: the state as ``snmf_mu_frozen_init`` fills it
-    (``numer`` = W^T v, ``lam``), B4 (``h_new``, ``sp_sum``), then B5 on
-    the kernel's h' on both sides (``div``, and ``lam_next``, the lam it
-    leaves): {output: (max abs err, max abs err / max |plain|)}, and
-    whether the padding of the kernel's lam holds flr.  These launches do
-    not count as the main path's."""
-    import torch
-    from drnmf_torch.ops import snmf_mu
-
-    n = v.shape[1]
-    state, plain = snmf_mu.FrozenW(), snmf_mu.FrozenW()
-    snmf_mu.snmf_mu_frozen_init(v, h, w, state)
-    snmf_mu.snmf_mu_frozen_init_reference(v, h, w, plain)
-    pairs = [("numer", state.numer, plain.numer),
-             ("lam", state.lam[:, :n].clone(), plain.lam)]
-    h_new, sp_sum = snmf_mu.snmf_mu_frozen_pass1(h, sparsity, state)
-    pairs += zip(("h_new", "sp_sum"), (h_new, sp_sum),
-                 snmf_mu.snmf_mu_frozen_pass1_reference(h, sparsity, plain))
-    pairs.append(("div", snmf_mu.snmf_mu_frozen_pass2(v, h_new, state),
-                  snmf_mu.snmf_mu_frozen_pass2_reference(v, h_new, plain)))
-    pairs.append(("lam_next", state.lam[:, :n], plain.lam))
-    torch.cuda.synchronize()
-    errs = {}
-    for name, o, rf in pairs:
-        diff = (o - rf).abs().max().item()
-        errs[name] = (diff, diff / max(rf.abs().max().item(), 1e-30))
-    return errs, bool((state.lam[:, n:] == snmf_mu.FLR).all())
-
-
-def snmf_kernel_phase():
-    """B4/B5 against their plain versions at shapes that cut every tile (n
-    below one 128-row tile; n = 0, 1, 2, 3 mod 4, which moves the rows'
-    alignment; m = 8, 257, 264 against the 88-column tiles; r = 2000 and r
-    not a multiple of 8; sparsity 0), and one whole MU iteration with half
-    of W frozen; the frozen route's passes at the same shapes."""
-    import torch
-    from drnmf_torch.ops import snmf_mu
-
-    rng = np.random.default_rng(11)
-    for m, r, n, sparsity in ((17, 6, 40, 0.7), (65, 63, 129, 0.0),
-                              (8, 8, 130, 0.3), (264, 50, 1030, 0.0),
-                              (257, 100, 4099, 1.0), (257, 2000, 4099, 1.0)):
-        case = f"m{m}_r{r}_n{n}_sp{sparsity}"
-        v, h, w = snmf_operands(rng, m, r, n)
-        errs = snmf_errors(v, h, w, sparsity)
-        frozen_errs, pad_ok = snmf_frozen_errors(v, h, w, sparsity)
-        errs.update({f"frozen_{k}": e for k, e in frozen_errs.items()})
-        w_mask = torch.arange(r, device="cuda") < r // 2
-        it = snmf_mu.mu_ed_iteration(v, h, w, sparsity, w_mask)
-        plain = snmf_mu.mu_ed_iteration(v, h, w, sparsity, w_mask,
-                                        passes=snmf_mu.PLAIN_PASSES)
-        for name, o, rf in zip(("iter_h", "iter_w", "iter_div", "iter_cost"),
-                               it, plain):
-            diff = (o - rf).abs().max().item()
-            errs[name] = (diff, diff / rf.abs().max().item())
-        if not sparsity:  # zero on both sides
-            errs.pop("sp_sum")
-            errs.pop("frozen_sp_sum")
-        ok = pad_ok and all(rel <= SNMF_RTOL for _, rel in errs.values())
-        log("snmf_kernel", case=case, rtol_of_max=SNMF_RTOL, ok=ok,
-            frozen_lam_padding_flr=pad_ok,
-            max_abs_err={k: e[0] for k, e in errs.items()},
-            max_rel_err={k: e[1] for k, e in errs.items()})
-        check(ok, f"B4/B5 disagree with their plain versions at {case}")
-
-
-def profile_split(fn, top=None):
-    """Where one warm call of ``fn`` spends its time: device ms by kernel
-    name from ``torch.profiler`` (the ``top`` largest, all when None), the
-    sum of device time, and the call's wall ms between two
-    synchronisations; their difference is the device's idle time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()  # warm
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    calls = max(1, int(np.ceil(PROFILE_S / (time.perf_counter() - t0))))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = {}
-    for e in prof.key_averages():
-        if "CUDA" not in str(e.device_type):
-            continue  # an operator: its kernels are counted themselves
-        ms = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0)) / 1e3
-        if ms > 0:  # names cut to 100 characters may merge kernels
-            prev = kernels.get(e.key[:100], [0.0, 0])
-            kernels[e.key[:100]] = [prev[0] + ms, prev[1] + e.count]
-    busy = sum(k[0] for k in kernels.values())
-    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
-    return {"device_ms_by_kernel": dict(ranked[:top]),
-            "device_busy_ms": busy, "wall_ms_profiled": wall_ms,
-            # None when the profiler saw no device time (not measured)
-            "idle_share": max(0.0, 1.0 - busy / wall_ms) if busy else None}
+        with record_function(trace.WINDOW):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        time.sleep(PROFILE_GRACE_S)
+    summary = trace.summarize(prof.events(), top)
+    device = summary.pop("device")
+    busy, window = summary["busy_s"], summary["window_s"]
+    summary.update(
+        calls=calls, window_s=window / calls,
+        busy_s=None if busy is None else busy / calls,
+        idle_share=None if busy is None else 1.0 - busy / window,
+        **{key: [[name, s / calls] for name, s in summary[key]]
+           for key in ("device_ops", "idle_gaps")})
+    return summary, device
 
 
 def synth_magnitudes(gen, n_signals, seconds=8.0):
@@ -1018,7 +851,7 @@ def synth_frames(gen, n_signals, seconds=8.0):
 
 
 def snmf_phases(card, config):
-    """Phases 12-15; returns the kernel table's rows for B4 and B5."""
+    """Phases 10-13; returns the kernel table's rows for B4 and B5."""
     import torch
     from drnmf_torch.config import snmf_params_from_config
     from drnmf_torch.convert import init_drnmf_params
@@ -1032,7 +865,7 @@ def snmf_phases(card, config):
                         "chip_smoke", "dicts")
     gen = torch.Generator(device="cuda").manual_seed(2017)
 
-    # 11. the dictionary entry point at full width
+    # 10. the dictionary entry point at full width
     clean, noisy = synth_frames(gen, SNMF_SIGNALS)
     params = snmf_params_from_config({"r": SNMF_R, "lam1": 1.0,
                                       "snmf_max_iter": SNMF_ITERS})
@@ -1088,7 +921,7 @@ def snmf_phases(card, config):
         reduced={"snmf_max_iter": [1000, SNMF_ITERS]})
     del clean
 
-    # 12. SNMF enhancer, W frozen, 200 iterations
+    # 11. SNMF enhancer, W frozen, 200 iterations
     x_frames = noisy[:, :noisy.shape[1] * INFER_SIGNALS // SNMF_SIGNALS]
     x_frames = x_frames.contiguous()
     del noisy
@@ -1103,26 +936,11 @@ def snmf_phases(card, config):
     check(infer_launches == {"pass1": INFER_ITERS, "pass2": INFER_ITERS},
           f"snmf_infer_irm launched {infer_launches}, expected "
           f"{INFER_ITERS} each")
-    # its passes against their plain versions on its frames and dictionary
-    w_dev = torch.from_numpy(w_noisy).cuda()
-    w_dev = w_dev / (w_dev * w_dev).sum(dim=0, keepdim=True).sqrt()
-    h_rand = 0.1 + torch.rand(
-        (w_dev.shape[1], x_frames.shape[1]), device="cuda",
-        generator=torch.Generator(device="cuda").manual_seed(13))
-    infer_errs, pad_ok = snmf_frozen_errors(x_frames, h_rand, w_dev, 1.0)
-    del w_dev, h_rand
-    infer_ok = pad_ok and all(rel <= SNMF_RTOL
-                              for _, rel in infer_errs.values())
     log("snmf_infer", card=card, frames=int(x_frames.shape[1]),
         launches=infer_launches, seconds=infer_s,
-        irm_min=float(irm.min()), irm_max=float(irm.max()),
-        rtol_of_max=SNMF_RTOL, frozen_passes_ok=infer_ok,
-        frozen_max_abs_err={k: e[0] for k, e in infer_errs.items()},
-        frozen_max_rel_err={k: e[1] for k, e in infer_errs.items()})
-    check(infer_ok, "the frozen route's passes disagree with their plain "
-          f"versions at {x_frames.shape[1]} frames")
+        irm_min=float(irm.min()), irm_max=float(irm.max()))
 
-    # 13. the solver on the kernels against the solver on the plain passes
+    # 12. the solver on the kernels against the solver on the plain passes
     m, r2, n = 257, 2 * SNMF_R, x_frames.shape[1]
     w0 = torch.rand((m, r2), generator=gen, device="cuda")
     h0 = torch.rand((r2, n), generator=gen, device="cuda")
@@ -1149,22 +967,40 @@ def snmf_phases(card, config):
           "sparse_nmf_ed on the kernels disagrees with the plain passes")
     del runs, w0, h0, x_frames
 
-    # 14. times at bench.py's SNMF shape
+    # 13. times at bench.py's SNMF shape
     m, r2, n = SNMF_TIMES_SHAPE
     v, h, w = snmf_operands(np.random.default_rng(12), m, r2, n)
-    errs = snmf_errors(v, h, w, 1.0)
-    frozen_errs, pad_ok = snmf_frozen_errors(v, h, w, 1.0)
-    check(pad_ok and all(rel <= SNMF_RTOL for errs_ in (errs, frozen_errs)
-                         for _, rel in errs_.values()),
-          f"B4/B5 disagree with their plain versions at {m}x{n}x{r2}")
-    # no float atomics, every sum in a fixed order: a repeat is bit-equal
+    # B4/B5 against their plain versions with sums over 140,000 frames (the
+    # card tests' reach 4,099), relative to each output's largest entry
     first = (*snmf_mu.snmf_mu_pass1(v, h, w, 1.0),
              snmf_mu.snmf_mu_pass2(v, h, w))
+    plain = (*snmf_mu.snmf_mu_pass1_reference(v, h, w, 1.0),
+             snmf_mu.snmf_mu_pass2_reference(v, h, w))
+    errs = {}
+    for name, a, b in zip(("h_new", "a", "b", "sp_sum", "div"), first, plain):
+        diff = (a - b).abs().max().item()
+        errs[name] = (diff, diff / max(b.abs().max().item(), 1e-30))
+    del plain
+    check(all(rel <= SNMF_RTOL for _, rel in errs.values()),
+          f"B4/B5 disagree with their plain versions at {m}x{n}x{r2}")
+    # no float atomics, every sum in a fixed order: a repeat is bit-equal,
+    # and the frozen route's passes, which read the same products in the
+    # same order, equal the general ones
     again = (*snmf_mu.snmf_mu_pass1(v, h, w, 1.0),
              snmf_mu.snmf_mu_pass2(v, h, w))
     repeat_equal = all(torch.equal(a, b) for a, b in zip(first, again))
     check(repeat_equal, f"a repeat of B4/B5 at {m}x{n}x{r2} is not bit-equal")
-    del first, again
+    state = snmf_mu.FrozenW()
+    snmf_mu.snmf_mu_frozen_init(v, h, w, state)
+    h_frozen, sp_frozen = snmf_mu.snmf_mu_frozen_pass1(h, 1.0, state)
+    frozen_equal = (torch.equal(h_frozen, first[0])
+                    and torch.equal(sp_frozen, first[3])
+                    and torch.equal(
+                        snmf_mu.snmf_mu_frozen_pass2(v, h_frozen, state),
+                        snmf_mu.snmf_mu_pass2(v, h_frozen, w)))
+    check(frozen_equal, "the frozen route's passes differ from the general "
+          f"ones at {m}x{n}x{r2}")
+    del first, again, state, h_frozen
     ms = {"pass1": cuda_ms(lambda: snmf_mu.snmf_mu_pass1(v, h, w, 1.0), 5),
           "pass2": cuda_ms(lambda: snmf_mu.snmf_mu_pass2(v, h, w), 5)}
     plain_ms = {
@@ -1188,12 +1024,13 @@ def snmf_phases(card, config):
                                   v @ h.T, lam @ h.T), 5),
         "pass2": cuda_ms(lambda: w @ h, 5)}
     del lam
-    bounds = snmf_bounds(m, r2, n)
+    bounds = {**{k: bounds_ms(e)
+                 for k, e in yardstick.snmf_bounds(m, r2, n).items()},
+              **frozen_snmf_bounds(m, r2, n)}
     # one warm MU iteration: B4's four products and its sums, the W-update
     # glue, B5
     all_w = torch.ones(r2, dtype=torch.bool, device="cuda")
-    split = profile_split(
-        lambda: snmf_mu.mu_ed_iteration(v, h, w, 1.0, all_w))
+    split, _ = profiled(lambda: snmf_mu.mu_ed_iteration(v, h, w, 1.0, all_w))
     # the frozen route's iteration, W^T v and lam already in its state (as
     # in every iteration of a solve but the first), beside the general one
     none_w = torch.zeros(r2, dtype=torch.bool, device="cuda")
@@ -1209,7 +1046,7 @@ def snmf_phases(card, config):
             lambda: snmf_mu.mu_ed_iteration(v, h, w, 1.0, all_w, None, True),
             5),
         "frozen": cuda_ms(frozen_iteration, 5)}
-    frozen_split = profile_split(frozen_iteration)
+    frozen_split, _ = profiled(frozen_iteration)
     # each frozen pass alone, on the h the state holds (B4 leaves it so,
     # B5 moves it to that same h)
     frozen_ms = {
@@ -1238,9 +1075,7 @@ def snmf_phases(card, config):
     log("snmf_times", card=card, shape=[m, r2, n], ms=ms, plain_ms=plain_ms,
         cublas_products_ms=cublas_ms,
         useful_tflops={k: bounds[k]["flops"] / ms[k] / 1e9 for k in ms},
-        **{key: {k: b[key] for k, b in bounds.items()}
-           for key in ("bound_ms", "bound_by", "bound_3xtf32_ms",
-                       "bound_f32_cuda_cores_ms")},
+        **{key: {k: b[key] for k, b in bounds.items()} for key in BOUND_KEYS},
         share_of_bound={k: bounds[k]["bound_ms"] / ms[k] for k in ms},
         share_of_3xtf32_bound={k: bounds[k]["bound_3xtf32_ms"] / ms[k]
                                for k in ms},
@@ -1255,9 +1090,7 @@ def snmf_phases(card, config):
         frozen_share_of_bound={
             k: bounds[f"frozen_{k}"]["bound_ms"] / frozen_ms[k]
             for k in frozen_ms},
-        frozen_max_abs_err={k: e[0] for k, e in frozen_errs.items()},
-        frozen_max_rel_err={k: e[1] for k, e in frozen_errs.items()},
-        iteration_ms=iteration_ms,
+        frozen_bit_equal_to_general=frozen_equal, iteration_ms=iteration_ms,
         frozen_iteration_bound={
             k: bounds["frozen_iter"][k]
             for k in ("flops", "bound_ms", "bound_by", "bound_3xtf32_ms")},
@@ -1266,10 +1099,9 @@ def snmf_phases(card, config):
         frozen_iteration_split=frozen_split)
 
     rows = []
-    for name, line, outputs, frozen_outputs in (
-            ("pass1", 97, ("h_new", "a", "b", "sp_sum"),
-             ("numer", "lam", "h_new", "sp_sum")),
-            ("pass2", 134, ("div",), ("div", "lam_next"))):
+    for name, line, outputs in (
+            ("pass1", 97, ("h_new", "a", "b", "sp_sum")),
+            ("pass2", 134, ("div",))):
         frozen_bound = bounds[f"frozen_{name}"]
         rows.append({
             "name": f"snmf_mu_{name}",
@@ -1282,11 +1114,7 @@ def snmf_phases(card, config):
             "max_abs_err": max(errs[o][0] for o in outputs),
             "ms": ms[name],
             "plain_ms": plain_ms[name],
-            "bound_ms": bounds[name]["bound_ms"],
-            "bound_by": bounds[name]["bound_by"],
-            "bound_3xtf32_ms": bounds[name]["bound_3xtf32_ms"],
-            "bound_f32_cuda_cores_ms":
-                bounds[name]["bound_f32_cuda_cores_ms"],
+            **{key: bounds[name][key] for key in BOUND_KEYS},
             # B5 is one product and an elementwise sum; no single call
             # computes B4
             "library_ms": cublas_ms[name] if name == "pass2" else None,
@@ -1296,87 +1124,13 @@ def snmf_phases(card, config):
             "frozen_route": {
                 "wrapper": f"snmf_mu_frozen_{name}",
                 "launches_by_path": {"snmf_infer": infer_launches[name]},
-                "max_abs_err": max(frozen_errs[o][0] for o in frozen_outputs),
+                "bit_equal_to_general": frozen_equal,
                 "ms": frozen_ms[name],
                 "bound_ms": frozen_bound["bound_ms"],
                 "bound_by": frozen_bound["bound_by"],
                 "share_of_bound": frozen_bound["bound_ms"] / frozen_ms[name]},
         })
     return rows
-
-
-def kernel_phases(config, params):
-    """Phase 3 for the recurrence kernels: B1, B2 and B3 against their plain
-    versions (B2 also against B1).  These launches count for no path."""
-    import torch
-    from drnmf_torch.convert import init_drnmf_params
-    from drnmf_torch.models.drnmf import DRNMFConfig
-    from drnmf_torch.ops import drnmf_scan
-
-    rng = np.random.default_rng(0)
-    f, r, K = 9, 8, 3
-    w = rng.uniform(0.05, 1.0, (f, 2 * r)).astype(np.float32)
-    w /= np.sqrt(np.sum(w**2, axis=0))
-    small_cfg = DRNMFConfig(input_dim=f, r=r, output_dim=f, K_layers=K,
-                            alph=10.0, lam1=0.5)
-    small_params = init_drnmf_params(
-        small_cfg, w, generator=torch.Generator().manual_seed(0), device="cuda")
-    x = rng.uniform(0, 1, (3, 11, f)).astype(np.float32)
-    x[1, 7:] = small_cfg.mask_value
-    cases = [("small_B3_T11_F9_2r16_K3", small_cfg, small_params, x),
-             ("flagship_B256_T64_F257_2r2000_K5", config, params,
-              rng.uniform(0, 1, (256, 64, 257)).astype(np.float32)),
-             ("streaming_B64_T16_F257_2r2000_K5", config, params,
-              rng.uniform(0, 1, (STREAMS, MULTI_BLOCK, 257))
-              .astype(np.float32))]
-    for name, cfg, prm, xin in cases:
-        args = scan_operands(cfg, prm, xin)
-        out = drnmf_scan.drnmf_scan_factored(*args)
-        inter = drnmf_scan.drnmf_scan_factored(*args, interleave=True)
-        torch.cuda.synchronize()
-        ref = drnmf_scan.drnmf_scan_factored_reference(*args)
-        torch.cuda.synchronize()
-        err, rel, ok = compare(out, ref)
-        log("kernel", case=name, max_abs_err=err, max_rel_err=rel,
-            rtol=KERNEL_RTOL, atol=KERNEL_ATOL, ok=ok)
-        check(ok, f"B1 disagrees with its plain version at {name}")
-        err, rel, ok = compare(inter, ref)
-        vs_b1 = (inter - out).abs().max().item()
-        log("interleave_kernel", case=name, max_abs_err=err, max_rel_err=rel,
-            max_abs_diff_to_b1=vs_b1, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
-            ok=ok)
-        check(ok and compare(inter, out)[2],
-              f"B2 disagrees with its plain version or with B1 at {name}")
-
-    rng = np.random.default_rng(6)
-    for name, shape, held_from in (
-            ("ragged_B3_T11_F9_2r16_K3", (3, 11, 9, 16, 3), 7),
-            ("K1_B5_T7_F33_2r14", (5, 7, 33, 14, 1), 4),
-            ("flagship_B256_T8_F257_2r2000_K5", (256, 8, 257, 2000, 5), 5),
-            ("streaming_B64_T16_F257_2r2000_K5",
-             (STREAMS, MULTI_BLOCK, 257, 2000, 5), 9),
-            ("one_stream_B1_T64_F257_2r2000_K5", (1, 64, 257, 2000, 5), None)):
-        args = dense_operands(rng, *shape, held_from=held_from)
-        out = drnmf_scan.drnmf_scan_dense(*args)
-        torch.cuda.synchronize()
-        ref = drnmf_scan.drnmf_scan_dense_reference(*args)
-        err, rel, ok = compare(out, ref)
-        # what each of uk and S moves: a kernel that dropped one would
-        # disagree by this much
-        moved = {}
-        if shape[4] > 1:
-            for operand, at in (("uk", 4), ("s_stack", 5)):
-                cut = list(args)
-                cut[at] = torch.zeros_like(cut[at])
-                moved[operand] = (drnmf_scan.drnmf_scan_dense_reference(*cut)
-                                  - ref).abs().max().item()
-        log("dense_kernel", case=name, max_abs_err=err, max_rel_err=rel,
-            rtol=KERNEL_RTOL, atol=KERNEL_ATOL, ok=ok, max_abs_out=ref.abs()
-            .max().item(), moved_by_operand=moved,
-            plan=b3_plan(shape[0], shape[2], shape[3])._asdict())
-        check(ok, f"B3 disagrees with its plain version at {name}")
-        check(all(m > 100 * KERNEL_ATOL for m in moved.values()),
-              f"an operand of B3 moves nothing at {name}: {moved}")
 
 
 def save_model(work, name, config, params):
@@ -1435,22 +1189,6 @@ def enhance_main(phase, card, config, params, cfg_path, ckpt, wavs, batch,
           f"{phase}: launches {launches}, expected {1 + n_calls} of {kernel} "
           "(one per enhance call) and none of another kernel")
     return launches, rtf
-
-
-def parity_phase(phase, config, params, plain):
-    """The whole enhance path against the same path with the recurrence
-    forced to its plain version, on 4 signals of 2 s."""
-    from drnmf_torch.enhance import enhance_signals
-
-    sigs = synth_signals(np.random.default_rng(3), 4, 2.0)
-    fast = enhance_signals(params, config, sigs, N_FFT, HOP)
-    slow = enhance_signals(params, config, sigs, N_FFT, HOP, scan_fn=plain)
-    diff = max(float(np.abs(a - p).max()) for a, p in zip(fast, slow))
-    peak = max(float(np.abs(p).max()) for p in slow)
-    log(phase, max_abs_wave_diff=diff, peak=peak,
-        tol=WAVE_RTOL_OF_PEAK * peak)
-    check(diff <= WAVE_RTOL_OF_PEAK * peak,
-          f"{phase}: whole path disagrees with the all-plain path")
 
 
 def main_path_magnitudes(batch):
@@ -1568,14 +1306,13 @@ def multi_phase(card, kind, config, params, kernel, seconds, scan_fn=None):
     launches = read_launches()
     # one all-active step under the profiler, after the counts were read
     zeros = np.zeros((STREAMS, blk), np.float32)
-    split = profile_split(lambda: multi.step(zeros), top=6)
-    # the profiler may not report a cooperative launch (B3's): without the
-    # recurrence kernel in the trace its idle share says nothing
+    split, device = profiled(lambda: multi.step(zeros), top=6)
+    # without the recurrence kernel in the trace (``profiled``), the idle
+    # share says nothing
     symbol = {"factored": "drnmf_scan_factored_kernel",
               "interleaved": "drnmf_scan_factored_interleaved_kernel",
               "dense": "drnmf_scan_dense_kernel"}[kernel]
-    split["recurrence_kernel_traced"] = any(
-        symbol in name for name in split["device_ms_by_kernel"])
+    split["recurrence_kernel_traced"] = any(symbol in n for _, _, n in device)
     if not split["recurrence_kernel_traced"]:
         split["idle_share"] = None  # not measured
     worst, all_ok = 0.0, True
@@ -1589,7 +1326,7 @@ def multi_phase(card, kind, config, params, kernel, seconds, scan_fn=None):
     if split["idle_share"] is not None:
         # against the unprofiled step: the profiler slows the host side
         split["idle_share_of_median_step"] = max(
-            0.0, 1.0 - split["device_busy_ms"] / median_ms)
+            0.0, 1.0 - 1e3 * split["busy_s"] / median_ms)
     log("multi", model=kind, kernel=kernel, launches=launches,
         streams=STREAMS, block_frames=MULTI_BLOCK, seconds_per_stream=seconds,
         steps=len(step_ms), ms_per_step_median=median_ms,
@@ -1708,40 +1445,6 @@ def paced_phase(card, config, params):
     return launches
 
 
-def train_bounds(args, n_trainable):
-    """Bounds of the parts of one train step on B1's operands ``args``,
-    counting what this batch's valid row-steps need.  Forward: B1's
-    (``factored_bounds``) plus every layer's hidden state written.
-    Backward kernel: 2(K-1) products of 2*F*2r a valid row-step (B1's
-    2K-1 less the first layer's and the top layer's input products); the
-    layer stack read, the deltas, p and gamma written, g read.  Weight
-    gradients: 1 + 3(K-1) products of 2*F*2r a valid row-step, reading x,
-    the stack, the deltas and p, writing the gradients.  Heads, loss and
-    Adam: the two heads' products forward and their two backward ones
-    (3 x 2*F*2r a row-step), the top layer and its gradient, x and y, and
-    Adam's reads and writes of each trainable entry (parameter, gradient,
-    two moments: 7 x 4 bytes)."""
-    bsz, t_len, f = args[0].shape
-    n2r, k = args[2].shape[-1], args[7].shape[0]
-    valid = int(args[1].sum().item())
-    plane = bsz * t_len * n2r * 4
-    fwd = factored_bounds(args)
-    fwd = bounds_of(fwd["flops"], fwd["bytes"] + k * plane)
-    weights = 2 * (k - 1) * f * n2r * 4
-    bwd = bounds_of(2 * f * n2r * 2 * (k - 1) * valid,
-                    2 * k * plane + plane + (k - 1) * bsz * t_len * f * 4
-                    + weights + bsz * n2r * 4)
-    grads = bounds_of((1 + 3 * (k - 1)) * 2 * f * n2r * valid,
-                      bsz * t_len * f * 4 + (2 * k - 1) * plane
-                      + (k - 1) * bsz * t_len * f * 4
-                      + (2 * k - 1) * f * n2r * 4 + k * n2r * 4)
-    heads = bounds_of(3 * 2 * f * n2r * valid,
-                      2 * plane + 2 * bsz * t_len * f * 4
-                      + 7 * 4 * n_trainable)
-    return {"forward": fwd, "backward": bwd, "weight_grads": grads,
-            "heads_loss_adam": heads}
-
-
 def train_sequences(gen, n, config):
     """(x, y, mask (n, T, 1)) numpy: noisy and clean magnitudes of n
     synthetic 4 s signals (``synth_magnitudes``) cut to TRAIN_T frames;
@@ -1762,131 +1465,12 @@ def train_sequences(gen, n, config):
     return tuple(a.cpu().numpy() for a in (x, y, mask))
 
 
-def backward_check(args, g, streamed=False):
-    """B1 with every layer kept against B1 without the flag (the top
-    output bit for bit) and the plain loop's stack; the backward kernel
-    against its plain version on that stack, a repeat bit-equal, padded
-    columns zero; with ``streamed``, also the streamed instance (forced)
-    against the plain version and bit-equal to the plan's instance, and
-    every layer's deltas nonzero somewhere, so that both instances were
-    checked on every layer's weights.  Returns (a log dict, ok, the
-    stack)."""
-    import torch
-    from drnmf_torch.ops import drnmf_scan
-
-    bsz = args[0].shape[0]
-    out = drnmf_scan.drnmf_scan_factored(*args)
-    kept, h_all = drnmf_scan.drnmf_scan_factored(*args, keep_layers=True)
-    _, ref_h = drnmf_scan.drnmf_scan_factored_reference(*args,
-                                                        keep_layers=True)
-    back_args = (g, args[1], h_all, *args[3:8])
-    got = drnmf_scan.drnmf_scan_factored_backward(*back_args)
-    again = drnmf_scan.drnmf_scan_factored_backward(*back_args)
-    ref = drnmf_scan.drnmf_scan_factored_backward_reference(*back_args)
-    torch.cuda.synchronize()
-    errs = {"h_all": compare(h_all[..., :bsz], ref_h)}
-    for name, a, b in zip(("delta", "p", "gamma"), got, ref):
-        errs[name] = compare(a, b) if b.numel() else (0.0, 0.0, True)
-    top_equal = bool(torch.equal(kept, out))
-    repeat_equal = all(torch.equal(a, b) for a, b in zip(got, again))
-    padded_zero = not (got[0][..., bsz:].any() or got[1][..., bsz:].any())
-    ok = (top_equal and repeat_equal and padded_zero
-          and all(e[2] for e in errs.values()))
-    fields = {}
-    if streamed:
-        with drnmf_scan.streamed_backward():
-            other = drnmf_scan.drnmf_scan_factored_backward(*back_args)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("delta", "p", "gamma"), other, ref):
-            errs[f"streamed_{name}"] = compare(a, b)
-        fields["streamed_bit_equal"] = all(
-            torch.equal(a, b) for a, b in zip(other, got))
-        fields["layers_with_deltas"] = [bool(ref[0][k].any())
-                                        for k in range(ref[0].shape[0])]
-        ok = (ok and fields["streamed_bit_equal"]
-              and all(fields["layers_with_deltas"])
-              and all(e[2] for e in errs.values()))
-    return ({"max_abs_err": {k: e[0] for k, e in errs.items()},
-             "max_rel_err": {k: e[1] for k, e in errs.items()},
-             "top_output_bit_equal": top_equal,
-             "repeat_bit_equal": repeat_equal,
-             "padded_columns_zero": padded_zero, **fields}, ok, h_all)
-
-
-def train_kernel_phase(config, params):
-    """Phase 3 for training's kernels (``backward_check``) at a ragged
-    small shape with K = 5, odd F and 2r with K = 2, K = 1 at the flagship
-    widths, and the flagship at B = 32 and at one row over 64 steps, with
-    masked tails and a masked step mid-sequence, and at the flagship the
-    streamed instance as well; at the flagship's 32 rows, rows 0-15 and
-    rows 0 and 31 run alone against the same rows of the 32-row call, bit
-    for bit.  These launches count for no path."""
-    import torch
-    from drnmf_torch.convert import init_drnmf_params
-    from drnmf_torch.models.drnmf import DRNMFConfig
-    from drnmf_torch.ops import drnmf_scan
-
-    rng = np.random.default_rng(11)
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    cases = []
-    for name, (bsz, t_len, f, r, k) in (
-            ("small_B5_T13_F9_2r16_K5", (5, 13, 9, 8, 5)),
-            ("odd_B3_T7_F33_2r14_K2", (3, 7, 33, 7, 2)),
-            ("K1_B33_T4_F257_2r2000", (33, 4, 257, 1000, 1)),
-            ("flagship_B32_T64_F257_2r2000_K5", (32, 64, 257, 1000, 5)),
-            ("flagship_B1_T64_F257_2r2000_K5", (1, 64, 257, 1000, 5))):
-        if f == 257 and k == 5:
-            cfg, prm = live_flagship(config, params)
-        else:
-            w = rng.uniform(0.05, 1.0, (f, 2 * r)).astype(np.float32)
-            w /= np.sqrt(np.sum(w**2, axis=0))
-            cfg = DRNMFConfig(input_dim=f, r=r, output_dim=f, K_layers=k,
-                              alph=10.0, lam1=0.5)
-            prm = init_drnmf_params(cfg, w, generator=torch.Generator()
-                                    .manual_seed(0), device="cuda")
-        x = rng.uniform(0, 1, (bsz, t_len, f)).astype(np.float32)
-        x[bsz // 2, t_len // 2:] = cfg.mask_value
-        if t_len > 2:
-            x[-1, 2] = cfg.mask_value
-        args = scan_operands(cfg, prm, x)
-        g = torch.randn((bsz, t_len, 2 * r), generator=gen, device="cuda")
-        fields, ok, h_all = backward_check(args, g, streamed=f == 257
-                                           and k == 5)
-        log("train_kernel", case=name, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
-            ok=ok, **fields)
-        check(ok, f"B1 with every layer kept or the backward kernel "
-                  f"disagrees with its plain version at {name}")
-        if bsz == 32:
-            batch = args, g, h_all
-    args, g, h_all = batch
-    full = drnmf_scan.drnmf_scan_factored_backward(g, args[1], h_all,
-                                                   *args[3:8])
-    rows_equal = {}
-    for sel in (slice(0, 16), slice(0, 1), slice(31, 32)):
-        rows = [a[sel].contiguous() if i < 3 else a
-                for i, a in enumerate(args)]
-        n = sel.stop - sel.start
-        _, h_rows = drnmf_scan.drnmf_scan_factored(*rows, keep_layers=True)
-        got = drnmf_scan.drnmf_scan_factored_backward(
-            g[sel].contiguous(), rows[1], h_rows, *rows[3:8])
-        rows_equal[f"{sel.start}-{sel.stop - 1}"] = bool(
-            torch.equal(h_rows[..., :n], h_all[..., sel])
-            and torch.equal(got[0][..., :n], full[0][..., sel])
-            and torch.equal(got[1][..., :n], full[1][..., sel])
-            and torch.equal(got[2], full[2][sel]))
-    log("train_kernel", case="flagship_B32_T64 rows alone",
-        rows_bit_equal=rows_equal)
-    check(all(rows_equal.values()),
-          f"training kernels' rows differ when run alone: {rows_equal}")
-
-
 def train_phase(card, config, params):
     """Phase ``train`` (module docstring).  Returns (the fit's launches,
     the kernel table's row of the backward kernel)."""
     import types
 
     import torch
-    from drnmf_torch.convert import params_from_numpy
     from drnmf_torch.models import batched_grad, drnmf
     from drnmf_torch.ops import drnmf_scan
     from drnmf_torch.train import (TrainConfig, load_checkpoint,
@@ -2063,13 +1647,14 @@ def train_phase(card, config, params):
         if i >= 2:
             walls.append(1e3 * (time.perf_counter() - t0))
     step_ms = statistics.median(walls)
-    prof = profile_split(lambda: step(p, xb, yb, mb))
-    kernel_ms = {"forward": 0.0, "backward": 0.0}
-    for name, (ms, _) in prof["device_ms_by_kernel"].items():
-        if "drnmf_scan_factored_bwd_kernel" in name:
-            kernel_ms["backward"] += ms
-        elif "drnmf_scan_factored_kernel" in name:
-            kernel_ms["forward"] += ms
+    prof, device = profiled(lambda: step(p, xb, yb, mb), top=8)
+    check(prof["busy_s"] is not None,
+          "train step: the profiler traced no device op")
+    kernel_ms = {part: 1e3 * trace.device_seconds(device, lambda n: sym in n)
+                 / prof["calls"]
+                 for part, sym in (("forward", "drnmf_scan_factored_kernel"),
+                                   ("backward",
+                                    "drnmf_scan_factored_bwd_kernel"))}
     args = drnmf.factored_scan_operands(params, config, xb,
                                         drnmf.step_mask_from_input(
                                             xb, config.mask_value))
@@ -2091,7 +1676,7 @@ def train_phase(card, config, params):
     one_args = (g[:1].contiguous(), one[1], h_one, *one[3:8])
     one_ms = cuda_ms(lambda: drnmf_scan.drnmf_scan_factored_backward(
         *one_args), 3)
-    one_bound = train_bounds(one, n_trainable)["backward"]
+    one_bound = train_parts(one, n_trainable)["backward"]
     del h_one, one_args
     no_dx = types.SimpleNamespace(needs_input_grad=(False, False))
     gemm_ms = cuda_ms(lambda: batched_grad._weight_grads(
@@ -2108,9 +1693,10 @@ def train_phase(card, config, params):
           f"the backward kernel disagrees with its plain version at the "
           f"train step's shape: {errs}")
     del ref, delta, p_all, h_all
-    bounds = train_bounds(args, n_trainable)
+    bounds = train_parts(args, n_trainable)
     valid_frames = int(args[1].sum().item())
-    rest_ms = prof["device_busy_ms"] - sum(kernel_ms.values()) - gemm_ms
+    busy_ms = 1e3 * prof["busy_s"]
+    rest_ms = busy_ms - sum(kernel_ms.values()) - gemm_ms
     parts = {
         "forward": {"ms": fwd_ms, "ms_profiled": kernel_ms["forward"]},
         "backward": {"ms": bwd_ms, "ms_profiled": kernel_ms["backward"],
@@ -2138,19 +1724,11 @@ def train_phase(card, config, params):
         valid_frames_a_step=valid_frames,
         backward_max_abs_err={k: e[0] for k, e in errs.items()},
         backward_max_rel_err={k: e[1] for k, e in errs.items()},
-        parts=parts, device_busy_ms=prof["device_busy_ms"],
-        wall_ms_profiled=prof["wall_ms_profiled"],
-        idle_share=prof["idle_share"],
-        device_ms_by_kernel=dict(list(prof["device_ms_by_kernel"].items())
-                                 [:8]))
+        parts=parts, profile=prof)
     check(all(v["ms"] >= bounds[k]["bound_ms"]
               for k, v in parts.items() if "ms" in v)
           and one_ms >= one_bound["bound_ms"],
           f"a part of the train step reads faster than its bound: {parts}")
-
-    # the trained model enhances through B1 as its plain path does
-    parity_phase("train_parity", config, params_from_numpy(best, "cuda"),
-                 drnmf_scan.drnmf_scan_factored_reference)
     return launches, {
         "name": "drnmf_scan_factored_backward",
         "route": "cuda",
@@ -2528,17 +2106,18 @@ def score_ops(ests, refs):
     return {"nfft": nfft, "rows": len(idxs), "ms": ms}
 
 
-def score_kernel_groups(split):
-    """profile_split's device ms summed by what the kernels do (by name):
-    FFTs, the Cholesky factorization and solve, gathers, the rest."""
+def score_kernel_groups(device):
+    """Device ms of ``profiled``'s operations (all its calls) summed by
+    what the kernels do (by name): FFTs, the Cholesky factorization and
+    solve, gathers, the rest."""
     groups = {"fft": 0.0, "cholesky_solve": 0.0, "gather": 0.0, "other": 0.0}
-    for name, (ms, _) in split["device_ms_by_kernel"].items():
+    for start, end, name in device:
         low = name.lower()
         key = ("fft" if "fft" in low else "cholesky_solve"
                if any(k in low for k in ("potr", "chol", "trsm", "trsv"))
                else "gather" if any(k in low for k in ("gather", "index"))
                else "other")
-        groups[key] += ms
+        groups[key] += 1e-3 * (end - start)
     return groups
 
 
@@ -2623,11 +2202,10 @@ def score_phase(card, enhanced, noisy, clean):
                   f"STOI {stoi_err} from the per-file path")
             host = {"pesq_max_abs_diff_to_host_f64": pesq_err,
                     "stoi_max_abs_diff_to_per_file": stoi_err}
-        split = profile_split(
-            lambda: engine.score_all_packed(ests, refs, device="cuda"))
-        groups = score_kernel_groups(split)
-        split["device_ms_by_kernel"] = dict(
-            list(split["device_ms_by_kernel"].items())[:12])
+        split, device = profiled(
+            lambda: engine.score_all_packed(ests, refs, device="cuda"), top=12)
+        groups = {k: ms / split["calls"]
+                  for k, ms in score_kernel_groups(device).items()}
         log("score", part=part, card=card, files=len(ests),
             audio_seconds=audio_s,
             buckets=[{"nfft": k, "rows": v} for k, v in sorted(
@@ -3688,13 +3266,8 @@ def main():
                    if "registers" in line or "spill" in line
                    or "Compiling entry" in line])
 
-    # 3. kernels vs plain versions
+    # 3. main path, through the entry points, at full width
     config, params = flagship()
-    kernel_phases(config, params)
-    train_kernel_phase(config, params)
-    snmf_kernel_phase()
-
-    # 4. main path, through the entry points, at full width
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "chip_smoke")
     os.makedirs(work, exist_ok=True)
@@ -3709,11 +3282,7 @@ def main():
                                       ckpt, wavs, batch, "factored",
                                       n_calls=5, n_warm=2)
 
-    # 5. whole path vs the all-plain path on the card
-    parity_phase("parity", config, params,
-                 drnmf_scan.drnmf_scan_factored_reference)
-
-    # 6. times at the main path's shapes (B=256, T=1021)
+    # 4. times at the main path's shapes (B=256, T=1021)
     for _ in range(2):  # the second call is warm
         stages = {}
         enhance_signals(params, config, batch, N_FFT, HOP, batch_size=256,
@@ -3777,7 +3346,7 @@ def main():
     ms, b2_ms = (b1_a + b1_b) / 2, (b2_a + b2_b) / 2
     plain_ms = cuda_ms(
         lambda: drnmf_scan.drnmf_scan_factored_reference(*args), 3)
-    bounds = factored_bounds(args)
+    bounds = factored_call_bounds(args)
     stream_args = scan_operands(config, params, mag[:STREAMS, :MULTI_BLOCK]
                                 .contiguous())
     stream_ms = {
@@ -3786,20 +3355,29 @@ def main():
             *stream_args, interleave=True), 20),
         "plain": cuda_ms(lambda: drnmf_scan.drnmf_scan_factored_reference(
             *stream_args), 5)}
-    stream_bounds = factored_bounds(stream_args)
+    stream_bounds = factored_call_bounds(stream_args)
     one_args = scan_operands(config, params, mag[:1].contiguous())
     one_ms = cuda_ms(lambda: drnmf_scan.drnmf_scan_factored(*one_args), 3)
     one_b2_ms = cuda_ms(lambda: drnmf_scan.drnmf_scan_factored(
         *one_args, interleave=True), 3)
-    # B2 against B1 at the smaller shapes
-    b2_vs_b1_small = {}
+    # B1 and B2 against the plain version and B2 against B1 at the online
+    # paths' shapes: a block of the multi-client step, one row
+    small_errs, b2_vs_b1_small = {}, {}
     for key, a in (("64x16", stream_args), ("1x1021", one_args)):
-        b2_small_err, _, b2_small_ok = compare(
-            drnmf_scan.drnmf_scan_factored(*a, interleave=True),
-            drnmf_scan.drnmf_scan_factored(*a))
+        small_ref = drnmf_scan.drnmf_scan_factored_reference(*a)
+        small_b1 = drnmf_scan.drnmf_scan_factored(*a)
+        small_b2 = drnmf_scan.drnmf_scan_factored(*a, interleave=True)
+        small_errs[key] = {name: compare(o, small_ref)[:2] for name, o in
+                           (("b1", small_b1), ("b2", small_b2))}
+        check(compare(small_b1, small_ref)[2],
+              f"B1 disagrees with its plain version at {key}")
+        check(compare(small_b2, small_ref)[2],
+              f"B2 disagrees with its plain version at {key}")
+        b2_small_err, _, b2_small_ok = compare(small_b2, small_b1)
         b2_vs_b1_small[key] = {"max_abs_diff": b2_small_err,
                                "within_tol": b2_small_ok}
         check(b2_small_ok, f"B2 disagrees with B1 at {key}")
+    del small_ref, small_b1, small_b2
     b1, b2 = {}, {}
     for key, a, b1_ms, b2_call_ms in (
             ("256x1021", args, ms, b2_ms),
@@ -3819,14 +3397,15 @@ def main():
         max_rel_err=rel, b2_max_abs_err=b2_err, b2_max_rel_err=b2_rel,
         b2_max_abs_diff_to_b1=b2_vs_b1, b1_repeat_bit_equal=repeat_equal,
         b1_row_bits_equal=row_bits_equal, b2_repeat_bit_equal=b2_repeat_equal,
-        b2_rows_alone=b2_rows, b2_vs_b1_small=b2_vs_b1_small,
+        b2_rows_alone=b2_rows, small_errs_vs_plain=small_errs,
+        b2_vs_b1_small=b2_vs_b1_small,
         streaming_shape=[STREAMS, MULTI_BLOCK], streaming_ms=stream_ms,
         streaming_bound_ms=stream_bounds["bound_ms"],
         streaming_bound_by=stream_bounds["bound_by"],
         one_row_ms=one_ms, one_row_b2_ms=one_b2_ms, b1=b1, b2=b2, rtf=rtf)
     del args, stream_args, one_args
 
-    # 7. the dense-U route through the same entry points
+    # 5. the dense-U route through the same entry points
     dense_config, dense_params = dense_flagship(config, params)
     dense_cfg_path, dense_ckpt = save_model(work, "flagship_dense_u",
                                             dense_config, dense_params)
@@ -3843,8 +3422,6 @@ def main():
     dense_launches, dense_rtf = enhance_main(
         "dense_main", card, dense_config, dense_params, dense_cfg_path,
         dense_ckpt, wavs, dense_batch, "dense", n_calls=3, n_warm=1)
-    parity_phase("dense_parity", dense_config, dense_params,
-                 drnmf_scan.drnmf_scan_dense_reference)
     dense_mag = mag[:len(dense_batch)].contiguous()
     del mag
     args = scan_operands(dense_config, dense_params, dense_mag)
@@ -3882,17 +3459,25 @@ def main():
     b3_b = cuda_ms(lambda: drnmf_scan.drnmf_scan_dense(*args), 2)
     p_b = cuda_ms(lambda: drnmf_scan.drnmf_scan_dense_reference(*args), 1)
     b3_ms, b3_plain_ms = (b3_a + b3_b) / 2, (p_a + p_b) / 2
-    b3_bounds_main = b3_bounds(args)
+    b3_bounds_main = dense_call_bounds(args)
     stream_args = scan_operands(dense_config, dense_params,
                                 dense_mag[:STREAMS, :MULTI_BLOCK].contiguous())
     dense_stream_ms = {
         "b3": cuda_ms(lambda: drnmf_scan.drnmf_scan_dense(*stream_args), 20),
         "plain": cuda_ms(lambda: drnmf_scan.drnmf_scan_dense_reference(
             *stream_args), 5)}
-    dense_stream_bound = b3_bounds(stream_args)
+    dense_stream_bound = dense_call_bounds(stream_args)
     one_args = scan_operands(dense_config, dense_params,
                              dense_mag[:1].contiguous())
     one_ms = cuda_ms(lambda: drnmf_scan.drnmf_scan_dense(*one_args), 3)
+    # B3 against the plain version at the online paths' shapes
+    b3_small_errs = {}
+    for key, a in (("64x16", stream_args), ("1x1021", one_args)):
+        small_err, small_rel, small_ok = compare(
+            drnmf_scan.drnmf_scan_dense(*a),
+            drnmf_scan.drnmf_scan_dense_reference(*a))
+        b3_small_errs[key] = [small_err, small_rel]
+        check(small_ok, f"B3 disagrees with its plain version at {key}")
     b3 = {}
     for key, a, b3_call_ms in ((f"{n_rows}x1021", args, b3_ms),
                                ("64x16", stream_args, dense_stream_ms["b3"]),
@@ -3905,18 +3490,17 @@ def main():
     log("dense_times", card=card, shape=list(dense_mag.shape), b3_ms=b3_ms,
         b3_ms_runs=[b3_a, b3_b], plain_ms=b3_plain_ms,
         plain_ms_runs=[p_a, p_b],
-        **{key: b3_bounds_main[key] for key in (
-            "bound_ms", "bound_by", "bound_3xtf32_ms",
-            "bound_f32_cuda_cores_ms")},
+        **{key: b3_bounds_main[key] for key in BOUND_KEYS},
         max_abs_err=b3_err, max_rel_err=b3_rel,
         b3_repeat_bit_equal=b3_repeat_equal, b3_rows_alone=b3_rows,
+        small_errs_vs_plain=b3_small_errs,
         streaming_shape=[STREAMS, MULTI_BLOCK], streaming_ms=dense_stream_ms,
         streaming_bound_ms=dense_stream_bound["bound_ms"],
         streaming_bound_by=dense_stream_bound["bound_by"],
         one_row_ms=one_ms, b3=b3, rtf=dense_rtf)
     del args, stream_args, one_args, dense_mag
 
-    # 8. the online path
+    # 6. the online path
     stream_phase(card, "frozen_u", config, params, "factored")
     stream_phase(card, "dense_u", dense_config, dense_params, "dense")
     multi_launches = {
@@ -3932,25 +3516,25 @@ def main():
     paced_launches = paced_phase(card, config, params)
     del dense_params
 
-    # 9. training at the reference schedule
+    # 7. training at the reference schedule
     train_launches, backward_row = train_phase(card, config, params)
 
-    # 10. the experiment pipeline through its command line
+    # 8. the experiment pipeline through its command line
     pipeline_launches, enhanced, noisy, clean = pipeline_phase(card)
 
-    # 11. scoring on the card: the pipeline's test split, its noisy input
+    # 9. scoring on the card: the pipeline's test split, its noisy input
     # and bench.py's battery, against the CPU
     score_phase(card, enhanced, noisy, clean)
 
     snmf_rows = snmf_phases(card, config)
 
-    # 16. multi-rank paths: two ranks of one gloo group on the card
+    # 14. multi-rank paths: two ranks of one gloo group on the card
     parallel_launches = parallel_phase(card, config, params, enhanced, clean)
 
-    # 17. the pipelined scans and the sharded checkpoint
+    # 15. the pipelined scans and the sharded checkpoint
     pipelined_launches = pipelined_phase(card, config, params)
 
-    # 18. --trace, the experiment scripts, ISTA and the Keras import
+    # 16. --trace, the experiment scripts, ISTA and the Keras import
     tooling_launches = tooling_phase(card, config, params, cfg_path)
 
     def by_path(kernel):
@@ -3998,10 +3582,7 @@ def main():
         "max_abs_err": b3_err,
         "ms": b3_ms,
         "plain_ms": b3_plain_ms,
-        "bound_ms": b3_bounds_main["bound_ms"],
-        "bound_by": b3_bounds_main["bound_by"],
-        "bound_3xtf32_ms": b3_bounds_main["bound_3xtf32_ms"],
-        "bound_f32_cuda_cores_ms": b3_bounds_main["bound_f32_cuda_cores_ms"],
+        **{key: b3_bounds_main[key] for key in BOUND_KEYS},
         "library_ms": None,
     }, {**backward_row, "launches_by_path": by_path("factored_backward")}]
     # the scored pipeline's dictionary stage and SNMF run, and the other

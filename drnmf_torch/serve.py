@@ -22,12 +22,13 @@ Usage:
 With the default ``--streams 0``, connections are served sequentially (one
 enhancer at a time, fresh state per connection).  With ``--streams S``, up
 to S clients are served concurrently through one batched
-:class:`drnmf_torch.MultiStreamEnhancer`: a coordinator thread steps
-whichever streams have a full block queued in one device step per iteration
-(the ``active`` mask keeps the other streams' carried state untouched), so
-concurrent clients share each launch of the recurrence kernel while each
-keeps the per-chunk protocol and the offline-equal output of the sequential
-mode.  Device work is issued from the coordinator thread only.
+:class:`drnmf_torch.MultiStreamEnhancer` (:class:`SelectorStreamServer`): a
+coordinator thread steps whichever streams have a full block queued in one
+device step per iteration (the ``active`` mask keeps the other streams'
+carried state untouched), so concurrent clients share each launch of the
+recurrence kernel while each keeps the per-chunk protocol and the
+offline-equal output of the sequential mode.  Device work is issued from
+the coordinator thread only.
 """
 
 import argparse
@@ -87,270 +88,6 @@ def serve_connection(conn, make_enhancer_state,
         _send_samples(conn, enh.process(data))
 
 
-class _Slot:
-    """Coordinator-side state for one connected stream."""
-
-    def __init__(self):
-        self.conn = None
-        self.pending = []          # list of float32 arrays awaiting blocks
-        self.pending_len = 0
-        self.outbox = []           # enhanced arrays awaiting the next reply
-        self.blocks_taken = 0      # blocks popped by the coordinator
-        self.blocks_done = 0       # blocks whose output reached the outbox
-        self.flushing = False
-        self.flush_out = None      # set once drained; reader sends + closes
-        self.dead = False
-
-    def pop_block(self, blk):
-        """Remove exactly ``blk`` samples from ``pending``."""
-        out, need = [], blk
-        while need:
-            a = self.pending[0]
-            if len(a) <= need:
-                out.append(self.pending.pop(0))
-                need -= len(a)
-            else:
-                out.append(a[:need])
-                self.pending[0] = a[need:]
-                need = 0
-        self.pending_len -= blk
-        return np.concatenate(out)
-
-
-class MultiStreamServer:
-    """Async multi-client coordinator over one MultiStreamEnhancer.
-
-    Readers (one thread per connection) enqueue decoded chunks into their
-    slot and block until the coordinator has consumed every full block of
-    theirs; the coordinator steps ALL ready streams per iteration through
-    one batched device program (``MultiStreamEnhancer.step(active=...)``),
-    so concurrent clients batch into single dispatches while idle streams'
-    state is untouched.  Per connection the protocol and output are
-    exactly the sequential server's."""
-
-    def __init__(self, multi, max_chunk=MAX_CHUNK_SAMPLES,
-                 timeout=RECV_TIMEOUT_S, gather_s=None):
-        self.multi = multi
-        self.blk = multi.block_samples
-        self.max_chunk = max_chunk
-        self.timeout = timeout
-        # batch-gathering window: once SOME stream has a full block, wait
-        # up to this long for the OTHER live streams' blocks before
-        # stepping, so near-simultaneous arrivals (real-time-paced clients
-        # phase-lock through the shared replies) ride ONE full-batch device
-        # program instead of splitting across two -- the fixed-shape step
-        # costs the same wall regardless of how many streams are active,
-        # so partial batches waste exactly that fraction of the device.
-        # Default: a quarter of the block duration at 16 kHz.
-        self.gather_s = (0.25 * self.blk / 16000.0
-                         if gather_s is None else gather_s)
-        self.lock = threading.Lock()
-        self.cond = threading.Condition(self.lock)
-        self.slots = [_Slot() for _ in range(multi.n_streams)]
-        self.stop = False
-        self.failed = None         # coordinator exception, fails all clients
-
-    # -- coordinator ------------------------------------------------------
-    def _actionable(self):
-        ready = [i for i, s in enumerate(self.slots)
-                 if s.conn is not None and not s.dead
-                 and s.pending_len >= self.blk]
-        drains = [i for i, s in enumerate(self.slots)
-                  if s.conn is not None and not s.dead and s.flushing
-                  and s.pending_len < self.blk and s.flush_out is None]
-        deads = [i for i, s in enumerate(self.slots)
-                 if s.conn is not None and s.dead]
-        return ready, drains, deads
-
-    def coordinator(self):
-        try:
-            self._coordinator_loop()
-        except BaseException as e:
-            # a device error here would otherwise kill this daemon
-            # thread silently and leave every reader blocked forever: record
-            # it and wake everyone so readers/claims fail fast instead
-            with self.cond:
-                self.failed = e
-                self.cond.notify_all()
-            raise
-
-    def _n_live(self):
-        return sum(1 for s in self.slots
-                   if s.conn is not None and not s.dead and not s.flushing)
-
-    def _coordinator_loop(self):
-        S = self.multi.n_streams
-        while True:
-            with self.cond:
-                deadline = None
-                while True:
-                    ready, drains, deads = self._actionable()
-                    if drains or deads or self.stop:
-                        break
-                    if ready:
-                        if len(ready) >= self._n_live():
-                            break  # full batch: no reason to wait
-                        now = time.monotonic()
-                        if deadline is None:
-                            deadline = now + self.gather_s
-                        if now >= deadline:
-                            break
-                        self.cond.wait(min(deadline - now, 0.25))
-                    else:
-                        deadline = None
-                        self.cond.wait(0.25)
-                if self.stop and not (ready or drains or deads):
-                    return
-                samples = np.zeros((S, self.blk), np.float32)
-                active = np.zeros(S, bool)
-                for i in ready:
-                    samples[i] = self.slots[i].pop_block(self.blk)
-                    self.slots[i].blocks_taken += 1
-                    active[i] = True
-                tails = {i: (np.concatenate(self.slots[i].pending)
-                             if self.slots[i].pending
-                             else np.zeros(0, np.float32))
-                         for i in drains}
-            # device work OUTSIDE the lock: readers keep enqueueing.
-            # (A dispatch/fetch-pipelined variant was measured SLOWER here:
-            # the per-chunk request-reply protocol means clients in batch k
-            # cannot produce batch k+1 until k's replies, so the pipeline
-            # never overlaps and only defers replies by an iteration.)
-            outs = self.multi.step(samples, active) if active.any() else None
-            flush_outs = {i: self.multi.flush_stream(i, tail=tails[i])
-                          for i in drains}
-            with self.cond:
-                for i in ready:
-                    if outs is not None and outs[i] is not None \
-                            and outs[i].size:
-                        self.slots[i].outbox.append(outs[i])
-                    self.slots[i].blocks_done += 1
-                for i, fo in flush_outs.items():
-                    self.slots[i].flush_out = fo
-                for i in deads:
-                    # reader already gone; recycle the abandoned state
-                    self.multi.reset_stream(i)
-                    self.slots[i].conn = None
-                    self.slots[i].__init__()
-                self.cond.notify_all()
-
-    def _check_failed(self):
-        if self.failed is not None:
-            raise ConnectionError(
-                f"server coordinator failed: {self.failed!r}")
-
-    # -- per-connection reader --------------------------------------------
-    def serve_connection(self, conn, i):
-        slot = self.slots[i]
-        if self.timeout:
-            conn.settimeout(self.timeout)
-        try:
-            while True:
-                (n,) = struct.unpack("<i", _recv_exact(conn, 4))
-                if n < 0:
-                    raise ValueError(f"negative chunk length {n}")
-                if n > self.max_chunk:
-                    raise ValueError(
-                        f"chunk length {n} exceeds the "
-                        f"{self.max_chunk}-sample cap")
-                if n == 0:
-                    with self.cond:
-                        slot.flushing = True
-                        self.cond.notify_all()
-                        self.cond.wait_for(
-                            lambda: slot.flush_out is not None
-                            or self.failed is not None)
-                        self._check_failed()
-                        out = np.concatenate(
-                            [np.concatenate(slot.outbox), slot.flush_out]
-                        ) if slot.outbox else slot.flush_out
-                    _send_samples(conn, out)
-                    return
-                data = np.frombuffer(_recv_exact(conn, 4 * n), dtype="<f4")
-                with self.cond:
-                    slot.pending.append(np.array(data))
-                    slot.pending_len += n
-                    self.cond.notify_all()
-                    # reply once every full block of ours is consumed AND
-                    # its output has landed in the outbox (blocks_done
-                    # catches up to blocks_taken), so each chunk gets
-                    # exactly one reply carrying its finalized samples
-                    # like the sequential server
-                    self.cond.wait_for(
-                        lambda: (slot.pending_len < self.blk
-                                 and slot.blocks_done == slot.blocks_taken)
-                        or slot.dead or self.failed is not None)
-                    self._check_failed()
-                    out = (np.concatenate(slot.outbox) if slot.outbox
-                           else np.zeros(0, np.float32))
-                    slot.outbox = []
-                _send_samples(conn, out)
-        finally:
-            with self.cond:
-                if slot.flush_out is not None and not slot.dead:
-                    # clean flush: flush_stream already reset device state
-                    slot.__init__()
-                else:
-                    slot.dead = True  # coordinator recycles the state
-                self.cond.notify_all()
-
-    def claim_slot(self, conn):
-        with self.cond:
-            self.cond.wait_for(
-                lambda: any(s.conn is None for s in self.slots)
-                or self.failed is not None)
-            self._check_failed()
-            i = next(i for i, s in enumerate(self.slots) if s.conn is None)
-            self.slots[i].__init__()
-            self.slots[i].conn = conn
-            return i
-
-    def shutdown(self):
-        with self.cond:
-            self.stop = True
-            self.cond.notify_all()
-
-
-def serve_multi(srv, multi, max_connections=0, max_chunk=MAX_CHUNK_SAMPLES,
-                timeout=RECV_TIMEOUT_S, verbose=True, gather_s=None):
-    """Accept loop for the multi-client server: claims a slot per
-    connection (blocking while all ``--streams`` slots are busy) and hands
-    it to a reader thread; the coordinator batches ready streams."""
-    server = MultiStreamServer(multi, max_chunk=max_chunk, timeout=timeout,
-                               gather_s=gather_s)
-    coord = threading.Thread(target=server.coordinator, daemon=True)
-    coord.start()
-    served, threads = 0, []
-    try:
-        while max_connections == 0 or served < max_connections:
-            conn, addr = srv.accept()
-            i = server.claim_slot(conn)
-
-            def run(conn=conn, addr=addr, i=i):
-                try:
-                    server.serve_connection(conn, i)
-                except (ConnectionError, ValueError, socket.timeout,
-                        struct.error) as e:
-                    if verbose:
-                        print(f"connection {addr}: {e}", flush=True)
-                finally:
-                    conn.close()
-
-            th = threading.Thread(target=run, daemon=True)
-            th.start()
-            # prune finished readers so a long-lived server holds O(live
-            # connections) thread objects, not one per connection ever served
-            threads = [t for t in threads if t.is_alive()]
-            threads.append(th)
-            served += 1
-    finally:
-        for th in threads:
-            if th.is_alive():
-                th.join(timeout=timeout or 60)
-        server.shutdown()
-        coord.join(timeout=10)
-
-
 _FLUSH = object()    # inbox sentinel: the client requested flush-and-close
 _RESERVED = object()  # slot claimed by the accept thread, socket not yet
                       # handed to the selector -- never a real connection
@@ -398,17 +135,18 @@ class _ESlot:
 class SelectorStreamServer:
     """Event-loop multi-client server over one MultiStreamEnhancer.
 
-    The thread-per-reader coordinator (:class:`MultiStreamServer`) puts S
-    reader threads plus the coordinator under one interpreter lock, and
-    every iteration's ``notify_all`` wakes all of them.
-    Here ONE selector thread owns every socket -- non-blocking chunk
-    parsing and reply writes -- and ONE coordinator thread owns the
-    device; cross-thread wakeups are a byte on a self-pipe (device ->
+    ONE selector thread owns every socket -- non-blocking chunk parsing
+    and reply writes -- and ONE coordinator thread owns the device, so the
+    server runs 3 threads with the accept loop, whatever its stream count;
+    cross-thread wakeups are a byte on a self-pipe (device ->
     selector) and a Condition shared by exactly two threads (selector ->
-    coordinator).  Per-connection protocol, reply timing, and outputs are
-    exactly the thread server's: chunk k's reply is sent once every full
-    block queued by chunks 1..k has been stepped and its output landed
-    (pipelined senders see chunks committed strictly one reply at a
+    coordinator).  The coordinator batches: once some stream has a full
+    block it waits up to ``gather_s`` (a quarter of a block's duration at
+    16 kHz) for the other live streams' blocks, so near-simultaneous
+    arrivals ride one full-batch device step.  Per connection the protocol
+    and outputs are the sequential server's: chunk k's reply is sent once
+    every full block queued by chunks 1..k has been stepped and its output
+    landed (pipelined senders see chunks committed strictly one reply at a
     time, matching the sequential reader's recv -> wait -> reply order).
     """
 
@@ -550,7 +288,11 @@ class SelectorStreamServer:
                              if self.slots[i].pending
                              else np.zeros(0, np.float32))
                          for i in drains}
-            # device work OUTSIDE the lock (selector keeps parsing)
+            # device work OUTSIDE the lock (selector keeps parsing).  (A
+            # dispatch/fetch-pipelined variant was measured SLOWER: the
+            # per-chunk request-reply protocol means clients in batch k
+            # cannot produce batch k+1 until k's replies, so the pipeline
+            # never overlaps and only defers replies by an iteration.)
             outs = self.multi.step(samples, active) if active.any() else None
             flush_outs = {i: self.multi.flush_stream(i, tail=tails[i])
                           for i in drains}
@@ -823,8 +565,7 @@ def serve_multi_selector(srv, multi, max_connections=0,
                          max_chunk=MAX_CHUNK_SAMPLES, timeout=RECV_TIMEOUT_S,
                          verbose=True, gather_s=None):
     """Accept loop for the event-loop server: 3 threads total (accept +
-    selector + coordinator) regardless of stream count, versus the thread
-    server's 1 + S."""
+    selector + coordinator) regardless of stream count."""
     server = SelectorStreamServer(multi, max_chunk=max_chunk,
                                   timeout=timeout, gather_s=gather_s)
     coord = threading.Thread(target=server.coordinator, daemon=True)
@@ -871,10 +612,6 @@ def main(argv=None):
     parser.add_argument("--streams", type=int, default=0,
                         help="serve up to N clients concurrently through "
                         "one batched MultiStreamEnhancer (0 = sequential)")
-    parser.add_argument("--reader-threads", action="store_true",
-                        help="use the thread-per-connection coordinator "
-                        "instead of the default event-loop server "
-                        "(3 threads total; see SelectorStreamServer)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
@@ -928,8 +665,8 @@ def main(argv=None):
             multi.flush_stream(0, tail=np.zeros(multi.hop, np.float32))
             for i in range(1, args.streams):
                 multi.reset_stream(i)
-            run = serve_multi if args.reader_threads else serve_multi_selector
-            run(srv, multi, max_connections=args.max_connections)
+            serve_multi_selector(srv, multi,
+                                 max_connections=args.max_connections)
         else:
             served = 0
             while args.max_connections == 0 or served < args.max_connections:

@@ -1,6 +1,11 @@
 """Kernels B1 to B5, the enhancers (batch and streaming) and sparse NMF on
 the card, against their plain versions and the CPU.
 
+These are the port's card checks over grids of shapes; ``chip_smoke.py``
+times the kernels at the paths' own shapes, holds only what belongs to
+those shapes (the kernels at 256 x 1,021 rows x steps, the SNMF passes
+over 140,000 frames, the train step at 32 x 500) and drives the paths.
+
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports neither jax nor drnmf_tpu, so on a machine with a
 card and no JAX it runs on its own:
@@ -319,8 +324,8 @@ def _dense_kernel_matches_plain_version(device):
     rng = np.random.default_rng(6)
     for shape in DENSE_SHAPES:
         for K in (1, 2, 3, 5):
-            if K == 5 and shape[3] == 1000 and shape[0] not in (1, 64):
-                continue  # 106 MB of weights: at the online paths' batches
+            if K == 5 and shape[3] == 1000 and shape[0] not in (1, 64, 256):
+                continue  # 106 MB of weights: at the paths' batches
             case = "B%d_T%d_F%d_r%d" % shape + f" K={K}"
             args = _dense_args(rng, *shape, K, device)
             before = dict(drnmf_scan.LAUNCHES)
@@ -437,7 +442,8 @@ def _dense_model_and_streaming_match_cpu(device):
 def test_dense_and_streaming_on_card(cuda):
     """B3 against its plain version over a grid of shapes (every batch
     tile, ragged edges, K = 1 with the dummy S, odd 2r, the flagship widths
-    at 1, 2, 64 and 256 rows), bit for bit reproducible; the wrapper's
+    at 1, 2, 64 and 256 rows, K = 5 at 1, 64 and 256), each of uk and S
+    moving the output, bit for bit reproducible; the wrapper's
     checks and a refused launch; a dense-U and a frozen-U model through the
     batch and the streaming enhancers against the CPU."""
     _dense_kernel_matches_plain_version(cuda)
@@ -473,6 +479,7 @@ SNMF_SHAPES = [  # (m, r, n)
     (264, 50, 1030),  # m = 3 x 88 exactly, r not a multiple of 8
     (265, 129, 257),  # one past three 88-column tiles, 128 rows, 2 x 64
     (257, 2000, 1000),  # the dictionary's width
+    (257, 2000, 4099),  # and a ragged frame edge
 ]
 
 
@@ -619,26 +626,32 @@ def _snmf_frozen_route_matches_by_hand(device):
                     f"{case} cost {it}"
             assert torch.equal(h, h_hand[:, :n]), case
 
-    m, r, n = 257, 100, 4099  # n = 3 mod 4: the narrow copies of h
-    v, w, h = uniform(0.01, (m, n)), uniform(0.1, (m, r)), uniform(0.1, (r, n))
-    w = w / (w * w).sum(dim=0, keepdim=True).sqrt()
-    state, h_frozen, h_general = snmf_mu.FrozenW(), h, h
-    before = dict(snmf_mu.LAUNCHES)
-    snmf_mu.snmf_mu_frozen_init(v, h, w, state)
-    assert snmf_mu.LAUNCHES == before  # once a solve: no iteration's launch
-    for it in range(3):
-        h_frozen, sp_frozen = snmf_mu.snmf_mu_frozen_pass1(h_frozen, 0.7,
-                                                           state)
-        div_frozen = snmf_mu.snmf_mu_frozen_pass2(v, h_frozen, state)
-        h_general, _, _, sp_general = snmf_mu.snmf_mu_pass1(v, h_general, w,
-                                                            0.7)
-        div_general = snmf_mu.snmf_mu_pass2(v, h_general, w)
-        for name, a, b in (("h", h_frozen, h_general),
-                           ("sp_sum", sp_frozen, sp_general),
-                           ("div", div_frozen, div_general)):
-            assert torch.equal(a, b), f"unpadded n={n} {name} {it}"
-    assert state.lam.shape == (m, n + 1)
-    assert bool((state.lam[:, n:] == snmf_mu.FLR).all())
+    # n = 0, 1, 2, 3 mod 4 (3: the narrow copies of h)
+    for m, r, n, sparsity in ((17, 6, 40, 0.7), (65, 63, 129, 0.0),
+                              (8, 8, 130, 0.3), (264, 50, 1030, 0.0),
+                              (257, 100, 4099, 0.7), (257, 2000, 4099, 1.0)):
+        case = f"unpadded m={m} r={r} n={n} sparsity={sparsity}"
+        v, w = uniform(0.01, (m, n)), uniform(0.1, (m, r))
+        h = uniform(0.1, (r, n))
+        w = w / (w * w).sum(dim=0, keepdim=True).sqrt()
+        state, h_frozen, h_general = snmf_mu.FrozenW(), h, h
+        before = dict(snmf_mu.LAUNCHES)
+        snmf_mu.snmf_mu_frozen_init(v, h, w, state)
+        assert snmf_mu.LAUNCHES == before  # once a solve: no launch
+        for it in range(3):
+            h_frozen, sp_frozen = snmf_mu.snmf_mu_frozen_pass1(
+                h_frozen, sparsity, state)
+            div_frozen = snmf_mu.snmf_mu_frozen_pass2(v, h_frozen, state)
+            h_general, _, _, sp_general = snmf_mu.snmf_mu_pass1(
+                v, h_general, w, sparsity)
+            div_general = snmf_mu.snmf_mu_pass2(v, h_general, w)
+            for name, a, b in (("h", h_frozen, h_general),
+                               ("sp_sum", sp_frozen, sp_general),
+                               ("div", div_frozen, div_general)):
+                assert torch.equal(a, b), f"{case} {name} {it}"
+        # lam's rows padded with flr to a multiple of four frames
+        assert state.lam.shape == (m, -(-n // 4) * 4), case
+        assert bool((state.lam[:, n:] == snmf_mu.FLR).all()), case
 
     # a state that does not hold the h, or holds other shapes, raises
     # before any launch
@@ -694,7 +707,9 @@ def test_snmf_on_card(cuda):
 @pytest.mark.cuda
 def test_snmf_frozen_route_on_card(cuda):
     """The frozen-dictionary route of ``sparse_nmf_ed`` against the general
-    route's launches by hand, bit for bit, with its launch counts."""
+    route's launches by hand, bit for bit, with its launch counts; its
+    passes alone on frames not padded (n = 0, 1, 2, 3 mod 4) equal to the
+    general passes, lam's padding held at flr."""
     _snmf_frozen_route_matches_by_hand(cuda)
 
 

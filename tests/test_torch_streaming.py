@@ -359,21 +359,18 @@ def test_serve_sequential_protocol_matches_offline(tmp_path):
     np.testing.assert_allclose(again[:len(offline)], offline, **TOL)
 
 
-@pytest.mark.parametrize("reader_threads", [False, True])
-def test_serve_concurrent_clients_match_offline(tmp_path, reader_threads):
+def test_serve_concurrent_clients_match_offline(tmp_path):
     """``--streams 3`` through ``main``: three concurrent clients with
     different lengths and chunk sizes through the event-loop server
-    (``SelectorStreamServer``) or the thread-per-reader one; each gets the
-    offline pipeline's output for its own signal."""
+    (``SelectorStreamServer``); each gets the offline pipeline's output for
+    its own signal."""
     _, tcfg, params = _model("frozen")
     rng = np.random.default_rng(5)
     sigs = [(rng.standard_normal(n) * 0.2).astype(np.float32)
             for n in (2500, 1200, 3100)]
     chunks = [600, 257, 911]  # deliberately not block multiples
-    extra = ["--streams", "3", "--max-connections", "3"]
-    if reader_threads:
-        extra.append("--reader-threads")
-    proc, port, watchdog = _start_server(tmp_path, params, extra)
+    proc, port, watchdog = _start_server(
+        tmp_path, params, ["--streams", "3", "--max-connections", "3"])
     results, errs = [None] * 3, []
 
     def client(c):

@@ -48,7 +48,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 
-from chip_smoke import profile_split  # noqa: E402
+from chip_smoke import profiled  # noqa: E402
 from drnmf_torch.models import drnmf  # noqa: E402
 from drnmf_torch.ops import build, drnmf_scan  # noqa: E402
 from test_torch_cuda import _model  # noqa: E402
@@ -192,9 +192,9 @@ def per_call_cost(params, cfg, rng):
         line[name] = {"ms_by_steps": ms, "ms_per_step": per_step,
                       "ms_per_call_besides_steps": ms[16] - 16 * per_step}
     for t_len in (16, 256):
-        line["b2"][f"profile_{t_len}_steps"] = profile_split(
+        line["b2"][f"profile_{t_len}_steps"] = profiled(
             lambda: drnmf_scan.drnmf_scan_factored(*args[t_len],
-                                                   interleave=True))
+                                                   interleave=True))[0]
     line["b2"]["host_ms_of_the_call_at_16_steps"] = host_ms(
         lambda: drnmf_scan.drnmf_scan_factored(*args[16], interleave=True))
     return line
